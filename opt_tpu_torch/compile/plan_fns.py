@@ -7,6 +7,7 @@ opt_tpu/compile/plan_fns.py, centered term groups only).
                               on exclusion, solverGPUGaussNewton.t:530-560 vs
                               :971-1000)
   cost(x, data)            -> 0.5 * sum of squared *masked* fields
+  model_cost               -> 0.5 * sum of masked (r + J delta)^2 (LM)
   linearize / jtf          -> torch.func.linearize for J.p (traced once per
                               linearization point), torch.func.vjp for J^T.v
   diag_jtj(x, data)        -> structural gather of squared per-leaf partials
@@ -17,7 +18,8 @@ never move: PCGLinearUpdate gate, solverGPUGaussNewton.t:855-862).
 
 FuncsOperator binds these to one problem's data and is the plain engine's
 side of the solver seam (solver/core.py): cost(x), outer(x) -> (J^T F,
-diag), apply(p) -> (mask(J^T J p), <p, Ap>), mask(v) and the PCG update.
+diag), apply(p, ctc) -> (mask(J^T J p + ctc p), <p, Ap>), mask(v),
+model_cost(delta) and the PCG update.
 """
 
 from __future__ import annotations
@@ -140,6 +142,18 @@ class ProblemFunctions:
             total = total + 0.5 * torch.sum(f * f)
         return total
 
+    def model_cost(self, r0, jvp_fn, delta, x, data):
+        """0.5 * sum of masked (r + J delta)^2 (createmodelcost, o.t:2915)."""
+        total = torch.zeros((), dtype=self.dtype, device=self.device)
+        for g, f0, fd in zip(self.groups, r0, jvp_fn(delta)):
+            f = f0 + fd
+            m = self.exclude_mask(g.ispace.key(), x, data)
+            if m is not None:
+                f = torch.where(m, torch.zeros((), dtype=self.dtype,
+                                               device=self.device), f)
+            total = total + 0.5 * torch.sum(f * f)
+        return total
+
     # -- linearization ---------------------------------------------------------
 
     def linearize(self, x, data):
@@ -208,14 +222,18 @@ class FuncsOperator:
     """The plain engine's operator for the solver seam (solver/core.py).
 
     Works on flat unknown vectors laid out by `layout` (solver/core.Layout);
-    outer(x) linearizes at x, and apply() uses that point until the next
-    outer()."""
+    outer(x) linearizes at x, and apply() and model_cost() use that point
+    until the next outer()."""
+
+    pcg_backend = None
 
     def __init__(self, funcs, data, layout):
         self.funcs = funcs
         self.data = data
         self.layout = layout
+        self._x = None
         self._masks = None
+        self._r0 = None
         self._jvp = None
         self._jt = None
 
@@ -223,10 +241,10 @@ class FuncsOperator:
         return self.funcs.cost(self.layout.views(xf), self.data)
 
     def outer(self, xf):
-        x = self.layout.views(xf)
+        self._x = x = self.layout.views(xf)
         self._masks = self.funcs.unknown_masks(x, self.data)
-        r0, self._jvp, self._jt = self.funcs.linearize(x, self.data)
-        jtf = self.layout.pack(self.funcs.jtf(r0, self._jt))
+        self._r0, self._jvp, self._jt = self.funcs.linearize(x, self.data)
+        jtf = self.layout.pack(self.funcs.jtf(self._r0, self._jt))
         diag = self.layout.pack(self.funcs.diag_jtj(x, self.data))
         return jtf, diag
 
@@ -234,9 +252,16 @@ class FuncsOperator:
         return self.layout.pack(self.funcs.mask_unknown_tree(
             self.layout.views(v), self._masks))
 
-    def apply(self, p):
-        jp = self._jvp(self.layout.views(p))
-        ap = self.mask(self.layout.pack(self._jt(jp)))
+    def apply(self, p, ctc=None):
+        jtjp = self.layout.pack(self._jt(self._jvp(self.layout.views(p))))
+        if ctc is not None:
+            jtjp = jtjp + ctc * p
+        ap = self.mask(jtjp)
         return ap, torch.dot(p, ap)
+
+    def model_cost(self, delta):
+        return self.funcs.model_cost(self._r0, self._jvp,
+                                     self.layout.views(delta), self._x,
+                                     self.data)
 
     update = staticmethod(pcg_update_plain)

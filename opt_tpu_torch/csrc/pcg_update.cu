@@ -10,9 +10,15 @@
 //     rz_b   = sum over block b of z' r'              (beta numerator)
 //     q_b    = sum over block b of 0.5 delta' (r' + b) (LM only)
 //
+// Hat mode (pre null): the streamed engine's Step2 in the Jacobi-scaled
+// space, where M = I (opt_tpu/ops/stream_solver.py StreamSolverHBM's
+// sweep 2): z' = r', so pre is not read and z' is not written; the caller
+// uses r' in its place, and rz_b sums r' r'.
+//
 // Bound on the card: device memory.  GN reads p, Ap, delta, r, pre (20 B
 // per element) and writes delta', r', z' (12 B); LM reads b as well (36 B
-// in all).  Two flops per byte at most, far under the H100's ridge, so the
+// in all; hat mode drops pre and z', 12 B).  Two flops per byte at most,
+// far under the H100's ridge, so the
 // design keeps to one read and one write of every vector: one thread per
 // element, 256 threads a block, neighbouring threads on neighbouring
 // addresses.  The cross-block sums are per-block partials written by a
@@ -54,10 +60,10 @@ pcg_update_kernel(const float* __restrict__ alpha_ptr,
   if (i < n) {
     const float d = delta[i] + alpha * p[i];
     const float rr = r[i] - alpha * ap[i];
-    const float z = pre[i] * rr;
+    const float z = pre != nullptr ? pre[i] * rr : rr;
     delta_out[i] = d;
     r_out[i] = rr;
-    z_out[i] = z;
+    if (z_out != nullptr) z_out[i] = z;
     rz = z * rr;
     if (uses_lambda) q = 0.5f * (d * (rr + b[i]));
   }
@@ -71,6 +77,8 @@ pcg_update_kernel(const float* __restrict__ alpha_ptr,
 
 }  // namespace
 
+// pre and z_out are null together in hat mode; b is read only when
+// uses_lambda
 extern "C" int opt_pcg_update_blocks(int n) {
   return (n + kThreads - 1) / kThreads;
 }

@@ -1,86 +1,48 @@
 // K1 warp_jtj_apply and K3 warp_linearize: the image_warping energy's
-// Gauss-Newton operator, written out by hand.
+// Gauss-Newton and Levenberg-Marquardt operator, written out by hand.
 //
 // Replaces the work that the TPU kernel opt_tpu/ops/vmem_solver.py:
-// VmemSolver._build traces into its body from the energy: the J^T J p apply
-// of every PCG iteration (the reference's PCGStep1, K1 here) and the
-// per-outer-iteration linearization -- J^T F, diag(J^T J) and the masked
-// cost (PCGInit1 and computeCost, K3 here).  The TPU kernel is generic
-// because it traces the energy's JAX evaluator; CUDA cannot trace Python,
-// so these two kernels hold the derivatives of one energy,
+// VmemSolver._build traces into its body from the energy: the
+// (J^T J + CtC) p apply of every PCG iteration (the reference's PCGStep1,
+// K1 here) and the per-outer-iteration linearization -- J^T F,
+// diag(J^T J), the masked cost and LM's model cost (PCGInit1, computeCost
+// and createmodelcost, K3 here).  The TPU kernel is generic because it
+// traces the energy's JAX evaluator; CUDA cannot trace Python, so these
+// two kernels hold the derivatives of one energy,
 // opt_tpu_torch/energies.py:image_warping, in closed form (the reference
-// did the same in its hand-written WarpingSolver.cu).
+// did the same in its hand-written WarpingSolver.cu).  warp_energy.cuh
+// states the energy and holds the J^T J apply shared with K4 and K5.
 //
-// The energy, for pixel k (row i, column j) and stencil offset s in
-// {(+1,0), (-1,0), (0,+1), (0,-1)} (x = column first), n = k + s:
-//   reg  r_{k,s} = w_reg * ((O(k) - O(n)) - R(A(k)) (U(k) - U(n)))
-//                  where InBounds(n) and Mask(n) == 0 and Mask(k) == 0
-//   fit  f_k     = w_fit * (O(k) - C(k))  where C(k) >= 0 in both channels
-// with R(a) the 2-D rotation, O the Offset (2 ch), A the Angle (1 ch),
-// U the UrShape, C the Constraints.  d/da R(a) v = R'(a) v with
-// R'(a) = [[-sin a, -cos a], [cos a, -sin a]].  J is UNMASKED (rows whose
-// centre pixel is excluded stay in J); only the cost and the unknown side
-// are masked: K1 zeroes Ap at excluded pixels, K3's cost skips residuals
-// centred on them (opt_tpu/compile/plan_fns.py:7-10, :197-200).
-//
-// Gather form: pixel k sums the 4 residuals centred at k and the 4
-// residuals centred at m = k - s that read k as their neighbour, so the
-// halo is one pixel and no thread writes another thread's output.
+// J is UNMASKED (rows whose centre pixel is excluded stay in J); only the
+// cost and the unknown side are masked: K1 zeroes Ap at excluded pixels,
+// K3's costs skip residuals centred on them (opt_tpu/compile/
+// plan_fns.py:7-10, :197-200, :217-234).
 //
 // Layout: the flat unknown vector holds Offset as (H, W, 2) then Angle as
 // (H, W, 1), the JAX package's channel-last layout; UrShape and Constraints
 // are (H, W, 2), Mask (H, W, 1); params = {w_fitSqrt, w_regSqrt} on the
-// device.
+// device.  K1's ctc (LM's CtC diagonal) and K3's delta (the model cost's
+// step) are flat vectors of the unknown layout, or null.
 //
 // Bound on the card: device memory and launch latency.  K1 reads p (12 B),
 // Angle (4 B), UrShape (8 B), Constraints (8 B) and Mask (4 B) per pixel
-// and writes Ap (12 B): 48 B per pixel, 12.6 MB at 512^2, which sits in the
-// 50 MB L2 across PCG iterations.  K3 reads x and the constants (36 B) and
-// writes J^T F and diag (24 B).  The neighbour reads are served by L1/L2
-// (a 32x8 block touches a 34x10 footprint), so the design is one thread per
-// pixel in 32x8 blocks with x on the contiguous W axis and no shared-memory
-// staging; the ~40 flops per pixel leave the kernels memory-bound.  Sums
-// across blocks are per-block partials from a fixed shared-memory tree (no
-// float atomics: repeated runs match bit for bit).  sincosf is the full-
-// precision version: the build uses no --use_fast_math, since __sinf and
-// __cosf would cost Rotate2D accuracy over 3,200 applies.
+// and writes Ap (12 B): 48 B per pixel (60 B with ctc), 12.6 MB at 512^2,
+// which sits in the 50 MB L2 across PCG iterations.  K3 reads x and the
+// constants (36 B, 48 B with delta) and writes J^T F and diag (24 B).  The
+// neighbour reads are served by L1/L2 (a 32x8 block touches a 34x10
+// footprint), so the design is one thread per pixel in 32x8 blocks with x
+// on the contiguous W axis and no shared-memory staging; the ~40 flops per
+// pixel leave the kernels memory-bound.  Sums across blocks are per-block
+// partials from a fixed shared-memory tree (no float atomics: repeated
+// runs match bit for bit).  sincosf is the full-precision version: the
+// build uses no --use_fast_math, since __sinf and __cosf would cost
+// Rotate2D accuracy over 3,200 applies.
 
-#include <cuda_runtime.h>
+#include "warp_energy.cuh"
 
 namespace {
 
-constexpr int kBX = 32;
-constexpr int kBY = 8;
-constexpr int kThreads = kBX * kBY;
-
-// stencil offsets in the energy's order, (dx, dy) = (column, row)
-__constant__ int kDX[4] = {1, -1, 0, 0};
-__constant__ int kDY[4] = {0, 0, 1, -1};
-
-__device__ __forceinline__ float block_sum(float v, float* sh) {
-  const int t = threadIdx.y * kBX + threadIdx.x;
-  sh[t] = v;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (t < s) sh[t] += sh[t + s];
-    __syncthreads();
-  }
-  return sh[0];
-}
-
-struct Grid {
-  int H, W;
-  __device__ bool inside(int i, int j) const {
-    return i >= 0 && i < H && j >= 0 && j < W;
-  }
-};
-
-// R'(a) d for d = U(m) - U(n)
-__device__ __forceinline__ void drot(float s, float c, float d0, float d1,
-                                     float* g0, float* g1) {
-  *g0 = -s * d0 - c * d1;
-  *g1 = c * d0 - s * d1;
-}
+enum LinearizeMode { kFull = 0, kCostOnly = 1, kModelCost = 2 };
 
 __global__ void __launch_bounds__(kThreads)
 warp_jtj_apply_kernel(const float* __restrict__ x,
@@ -89,6 +51,7 @@ warp_jtj_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ cons,
                       const float* __restrict__ mask,
                       const float* __restrict__ params,
+                      const float* __restrict__ ctc,
                       float* __restrict__ ap, float* __restrict__ partials,
                       int H, int W) {
   __shared__ float sh[kThreads];
@@ -96,51 +59,18 @@ warp_jtj_apply_kernel(const float* __restrict__ x,
   const int j = blockIdx.x * kBX + threadIdx.x;
   const int i = blockIdx.y * kBY + threadIdx.y;
   const int HW = H * W;
-  const float* angle = x + 2 * HW;
-  const float* pA = p + 2 * HW;
   float dot = 0.f;
   if (g.inside(i, j)) {
     const int k = i * W + j;
     float a0 = 0.f, a1 = 0.f, aA = 0.f;
     if (mask[k] == 0.f) {
-      const float w_fit = params[0], w_reg = params[1];
-      const float pk0 = p[2 * k], pk1 = p[2 * k + 1], pkA = pA[k];
-      const float uk0 = ur[2 * k], uk1 = ur[2 * k + 1];
-      float sk, ck;
-      sincosf(angle[k], &sk, &ck);
-      for (int t = 0; t < 4; ++t) {
-        // residual centred at k, reading n = k + s
-        const int ni = i + kDY[t], nj = j + kDX[t];
-        if (g.inside(ni, nj)) {
-          const int n = ni * W + nj;
-          if (mask[n] == 0.f) {
-            float g0, g1;
-            drot(sk, ck, uk0 - ur[2 * n], uk1 - ur[2 * n + 1], &g0, &g1);
-            const float jp0 = w_reg * ((pk0 - p[2 * n]) - g0 * pkA);
-            const float jp1 = w_reg * ((pk1 - p[2 * n + 1]) - g1 * pkA);
-            a0 += w_reg * jp0;
-            a1 += w_reg * jp1;
-            aA += -w_reg * g0 * jp0 + -w_reg * g1 * jp1;
-          }
-        }
-        // residual centred at m = k - s, reading k
-        const int mi = i - kDY[t], mj = j - kDX[t];
-        if (g.inside(mi, mj)) {
-          const int m = mi * W + mj;
-          if (mask[m] == 0.f) {
-            float sm, cm, g0, g1;
-            sincosf(angle[m], &sm, &cm);
-            drot(sm, cm, ur[2 * m] - uk0, ur[2 * m + 1] - uk1, &g0, &g1);
-            const float jp0 = w_reg * ((p[2 * m] - pk0) - g0 * pA[m]);
-            const float jp1 = w_reg * ((p[2 * m + 1] - pk1) - g1 * pA[m]);
-            a0 -= w_reg * jp0;
-            a1 -= w_reg * jp1;
-          }
-        }
-      }
-      if (cons[2 * k] >= 0.f && cons[2 * k + 1] >= 0.f) {
-        a0 += w_fit * (w_fit * pk0);
-        a1 += w_fit * (w_fit * pk1);
+      const float pk0 = p[2 * k], pk1 = p[2 * k + 1], pkA = p[2 * HW + k];
+      jtj_at(g, i, j, x + 2 * HW, ur, cons, mask, params[0], params[1], pk0,
+             pk1, pkA, FlatRead{p, HW}, &a0, &a1, &aA);
+      if (ctc != nullptr) {
+        a0 += ctc[2 * k] * pk0;
+        a1 += ctc[2 * k + 1] * pk1;
+        aA += ctc[2 * HW + k] * pkA;
       }
       dot = pk0 * a0 + pk1 * a1 + pkA * aA;
     }
@@ -149,8 +79,7 @@ warp_jtj_apply_kernel(const float* __restrict__ x,
     ap[2 * HW + k] = aA;
   }
   const float s = block_sum(dot, sh);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
+  if (thread_rank() == 0) partials[block_rank()] = s;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -159,15 +88,18 @@ warp_linearize_kernel(const float* __restrict__ x,
                       const float* __restrict__ cons,
                       const float* __restrict__ mask,
                       const float* __restrict__ params,
+                      const float* __restrict__ delta,
                       float* __restrict__ jtf, float* __restrict__ diag,
                       float* __restrict__ cost_partials, int H, int W,
-                      int cost_only) {
+                      int mode) {
   __shared__ float sh[kThreads];
   const Grid g{H, W};
   const int j = blockIdx.x * kBX + threadIdx.x;
   const int i = blockIdx.y * kBY + threadIdx.y;
   const int HW = H * W;
   const float* angle = x + 2 * HW;
+  const bool derivs = mode == kFull;
+  const bool model = mode == kModelCost;
   float cost = 0.f;
   if (g.inside(i, j)) {
     const int k = i * W + j;
@@ -175,6 +107,12 @@ warp_linearize_kernel(const float* __restrict__ x,
     const bool keep = mask[k] == 0.f;
     const float ok0 = x[2 * k], ok1 = x[2 * k + 1];
     const float uk0 = ur[2 * k], uk1 = ur[2 * k + 1];
+    float dk0 = 0.f, dk1 = 0.f, dkA = 0.f;
+    if (model) {
+      dk0 = delta[2 * k];
+      dk1 = delta[2 * k + 1];
+      dkA = delta[2 * HW + k];
+    }
     float sk, ck;
     sincosf(angle[k], &sk, &ck);
     float j0 = 0.f, j1 = 0.f, jA = 0.f, d0 = 0.f, d1 = 0.f, dA = 0.f;
@@ -187,13 +125,17 @@ warp_linearize_kernel(const float* __restrict__ x,
           const int n = ni * W + nj;
           if (mask[n] == 0.f) {
             const float e0 = uk0 - ur[2 * n], e1 = uk1 - ur[2 * n + 1];
-            const float r0 = w_reg * ((ok0 - x[2 * n]) - (ck * e0 - sk * e1));
-            const float r1 =
-                w_reg * ((ok1 - x[2 * n + 1]) - (sk * e0 + ck * e1));
+            float r0 = w_reg * ((ok0 - x[2 * n]) - (ck * e0 - sk * e1));
+            float r1 = w_reg * ((ok1 - x[2 * n + 1]) - (sk * e0 + ck * e1));
+            float g0, g1;
+            drot(sk, ck, e0, e1, &g0, &g1);
+            if (model) {
+              // r + J delta: the linear model of this residual
+              r0 += w_reg * ((dk0 - delta[2 * n]) - g0 * dkA);
+              r1 += w_reg * ((dk1 - delta[2 * n + 1]) - g1 * dkA);
+            }
             ssq += r0 * r0 + r1 * r1;
-            if (!cost_only) {
-              float g0, g1;
-              drot(sk, ck, e0, e1, &g0, &g1);
+            if (derivs) {
               g0 *= -w_reg;
               g1 *= -w_reg;
               j0 += w_reg * r0;
@@ -205,7 +147,7 @@ warp_linearize_kernel(const float* __restrict__ x,
             }
           }
         }
-        if (cost_only) continue;
+        if (!derivs) continue;
         // residual centred at m = k - s, reading k
         const int mi = i - kDY[t], mj = j - kDX[t];
         if (g.inside(mi, mj)) {
@@ -226,8 +168,12 @@ warp_linearize_kernel(const float* __restrict__ x,
       }
     }
     if (cons[2 * k] >= 0.f && cons[2 * k + 1] >= 0.f) {
-      const float f0 = w_fit * (ok0 - cons[2 * k]);
-      const float f1 = w_fit * (ok1 - cons[2 * k + 1]);
+      float f0 = w_fit * (ok0 - cons[2 * k]);
+      float f1 = w_fit * (ok1 - cons[2 * k + 1]);
+      if (model) {
+        f0 += w_fit * dk0;
+        f1 += w_fit * dk1;
+      }
       ssq += f0 * f0 + f1 * f1;
       j0 += w_fit * f0;
       j1 += w_fit * f1;
@@ -235,7 +181,7 @@ warp_linearize_kernel(const float* __restrict__ x,
       d1 += w_fit * w_fit;
     }
     if (keep) cost = 0.5f * ssq;
-    if (!cost_only) {
+    if (derivs) {
       jtf[2 * k] = j0;
       jtf[2 * k + 1] = j1;
       jtf[2 * HW + k] = jA;
@@ -245,12 +191,7 @@ warp_linearize_kernel(const float* __restrict__ x,
     }
   }
   const float s = block_sum(cost, sh);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    cost_partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
-}
-
-dim3 warp_grid(int H, int W) {
-  return dim3((W + kBX - 1) / kBX, (H + kBY - 1) / kBY);
+  if (thread_rank() == 0) cost_partials[block_rank()] = s;
 }
 
 }  // namespace
@@ -263,21 +204,26 @@ extern "C" int opt_warp_blocks(int H, int W) {
 extern "C" int opt_warp_jtj_apply(const float* x, const float* p,
                                   const float* ur, const float* cons,
                                   const float* mask, const float* params,
-                                  float* ap, float* partials, int H, int W,
+                                  const float* ctc, float* ap,
+                                  float* partials, int H, int W,
                                   void* stream) {
   warp_jtj_apply_kernel<<<warp_grid(H, W), dim3(kBX, kBY), 0,
-                          (cudaStream_t)stream>>>(x, p, ur, cons, mask,
-                                                  params, ap, partials, H, W);
+                          (cudaStream_t)stream>>>(
+      x, p, ur, cons, mask, params, ctc, ap, partials, H, W);
   return (int)cudaGetLastError();
 }
 
+// mode: 0 J^T F, diag and cost; 1 the cost alone; 2 the model cost
+// 0.5 sum mask(F + J delta)^2 alone
 extern "C" int opt_warp_linearize(const float* x, const float* ur,
                                   const float* cons, const float* mask,
-                                  const float* params, float* jtf, float* diag,
+                                  const float* params, const float* delta,
+                                  float* jtf, float* diag,
                                   float* cost_partials, int H, int W,
-                                  int cost_only, void* stream) {
+                                  int mode, void* stream) {
   warp_linearize_kernel<<<warp_grid(H, W), dim3(kBX, kBY), 0,
                           (cudaStream_t)stream>>>(
-      x, ur, cons, mask, params, jtf, diag, cost_partials, H, W, cost_only);
+      x, ur, cons, mask, params, delta, jtf, diag, cost_partials, H, W,
+      mode);
   return (int)cudaGetLastError();
 }

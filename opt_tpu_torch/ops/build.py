@@ -1,16 +1,19 @@
 """Build and load the port's CUDA kernels (opt_tpu_torch/csrc/*.cu).
 
-At first use, nvcc compiles every source under csrc/ into one shared
-library with a plain C interface, which ctypes loads:
+At first use, nvcc compiles every source under csrc/ (the *.cu files,
+which include the *.cuh headers there), one process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, which ctypes loads:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/opt_tpu_torch/<hash>/libopt_tpu_torch.so \
-         opt_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c opt_tpu_torch/csrc/<name>.cu \
+         -o build/opt_tpu_torch/<hash>/<name>.o        (each source)
+    nvcc -shared -o build/opt_tpu_torch/<hash>/libopt_tpu_torch.so *.o
 
 The output lives under build/ at the repository root, keyed by a hash of
-the sources and flags, so an edited source rebuilds and an unchanged one
-loads the library it already built.  Importing this module needs no nvcc
-and no card; library() raises when there is no nvcc.
+the sources, headers and flags, so an edited source rebuilds and an
+unchanged one loads the library it already built.  Importing this module
+needs no nvcc and no card; library() raises when there is no nvcc.
 
 Each C entry point launches on the stream it is given and returns
 cudaGetLastError(); check() raises on a non-zero code.
@@ -30,7 +33,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "opt_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 LIB_NAME = "libopt_tpu_torch.so"
 
@@ -39,8 +42,10 @@ _I = ctypes.c_int
 # name -> argument types; every pointer and the stream are c_void_p
 SIGNATURES = {
     "opt_warp_blocks": [_I, _I],
-    "opt_warp_jtj_apply": [_P] * 8 + [_I, _I, _P],
-    "opt_warp_linearize": [_P] * 8 + [_I, _I, _I, _P],
+    "opt_warp_jtj_apply": [_P] * 9 + [_I, _I, _P],
+    "opt_warp_linearize": [_P] * 9 + [_I, _I, _I, _P],
+    "opt_warp_hat_apply": [_P] * 13 + [_I, _I, _P],
+    "opt_warp_pipelined_sweep": [_P] * 18 + [_I, _I, _P],
     "opt_pcg_update_blocks": [_I],
     "opt_pcg_update": [_P] * 12 + [_I, _I, _P],
 }
@@ -68,9 +73,13 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _key():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -86,14 +95,28 @@ def library():
     if not out.exists():
         nvcc = _nvcc()
         out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in sources()]]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = res.stdout + res.stderr
+        tag = f"{os.getpid()}.tmp"
+        objs = [out.with_name(f"{src.stem}.{tag}.o") for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        build_log = "".join(logs)
+        failed = [src.name for src, proc in zip(sources(), procs)
+                  if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{build_log}")
+        tmp = out.with_name(f"{LIB_NAME}.{tag}")
+        res = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        build_log += res.stdout + res.stderr
         if res.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{build_log}")
+                f"nvcc link failed ({res.returncode}):\n{build_log}")
+        for obj in objs:
+            obj.unlink()
         os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))
@@ -114,7 +137,9 @@ def check(rc, name):
 
 
 def ptr(t):
-    return ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address for ctypes; None (a null pointer) for
+    an operand that is absent."""
+    return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
 def stream():

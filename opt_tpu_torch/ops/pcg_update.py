@@ -7,6 +7,10 @@ opt_tpu/ops/pcg_pallas.py).
     rz     = <z', r'>                  (the next beta numerator)
     q      = 0.5 <delta', r' + b>      (LM only, when b is given)
 
+With pre None (hat mode, the streamed engine's Step2 in the Jacobi-scaled
+space, where M = I) z' is r' itself: the kernel reads no pre and writes no
+z', and the returned z' is r'.
+
 The port keeps every PCG work vector in one contiguous flat buffer (with
 per-unknown views for the evaluator), so the kernel runs on the solver's
 own buffers.  The TPU version lost 88x to a per-iteration
@@ -26,10 +30,10 @@ from . import build
 
 def pcg_update_plain(alpha, p, ap, delta, r, pre, b=None):
     """Plain torch Step2.  Returns (delta', r', z', rz, q); q is None for
-    GN (no b)."""
+    GN (no b), and z' is r' when pre is None."""
     delta = delta + alpha * p
     r = r - alpha * ap
-    z = pre * r
+    z = r if pre is None else pre * r
     rz = torch.dot(z, r)
     q = None if b is None else 0.5 * torch.dot(delta, r + b)
     return delta, r, z, rz, q
@@ -44,16 +48,17 @@ def pcg_update(alpha, p, ap, delta, r, pre, b=None):
     if build.all_on_cpu(alpha, p, ap, delta, r, pre, b):
         return pcg_update_plain(alpha, p, ap, delta, r, pre, b)
     n = p.shape[0]
-    vecs = dict(p=p, ap=ap, delta=delta, r=r, pre=pre)
-    if b is not None:
-        vecs["b"] = b
+    vecs = dict(p=p, ap=ap, delta=delta, r=r)
+    for name, v in (("pre", pre), ("b", b)):
+        if v is not None:
+            vecs[name] = v
     build.check_tensors("pcg_update", {"alpha": (), **{k: (n,) for k in vecs}},
                         alpha=alpha, **vecs)
     lib = build.library()
     blocks = lib.opt_pcg_update_blocks(n)
     delta_out = torch.empty_like(delta)
     r_out = torch.empty_like(r)
-    z_out = torch.empty_like(r)
+    z_out = torch.empty_like(r) if pre is not None else None
     rz_parts = torch.empty(blocks, dtype=p.dtype, device=p.device)
     q_parts = (torch.empty(blocks, dtype=p.dtype, device=p.device)
                if b is not None else rz_parts)
@@ -66,7 +71,8 @@ def pcg_update(alpha, p, ap, delta, r, pre, b=None):
     build.check(rc, "pcg_update")
     pcg_update.launches += 1
     q = torch.sum(q_parts) if b is not None else None
-    return delta_out, r_out, z_out, torch.sum(rz_parts), q
+    return (delta_out, r_out, r_out if z_out is None else z_out,
+            torch.sum(rz_parts), q)
 
 
 pcg_update.launches = 0

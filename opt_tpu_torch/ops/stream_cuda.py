@@ -1,0 +1,283 @@
+"""The streamed engine for large image_warping grids: the inner PCG solve
+in the Jacobi-scaled ("hat") space on hand-written CUDA kernels (port of
+opt_tpu/ops/stream_solver.py StreamSolverHBM).
+
+Past the sizes where the whole grid's solve stays on chip, the JAX package
+runs the inner PCG of each outer step as one of two streamed Pallas
+kernels behind solver/core's pcg_backend seam; the outer step (J^T F,
+diag, cost, LM's trust region) stays in the solver.  In the hat space
+A_hat = S (J^T J [+ CtC]) S, S = diag(sq), sq = sqrt(pre), the
+preconditioner is the identity, so z == r; excluded unknowns have sq = 0,
+which is their masking (stream_solver.py:17-28).  The solver hands the
+backend sq, scs = sq^2 ctc (LM; None for GN) and b_hat = sq b and gets
+d_hat back, with delta = sq d_hat.  The two backends:
+
+  classic    (row 4, StreamSolverHBM._build_backend_kernel) per iteration
+             K4 warp_hat_apply  p = r + beta p_prev, A_hat p, <p, A_hat p>
+             K2 pcg_update      hat mode: delta += alpha p, r -= alpha Ap,
+                                <r, r>, LM's q = 0.5 <delta, r + b_hat>
+             and, in LM, every residual_reset_period iterations one more
+             K4 on delta for the exact reset r = b_hat - A_hat delta, and
+             the Q/zeta exit, predicated as in solver/core.py;
+  pipelined  (row 5, StreamSolverHBM._build_pipelined_kernel, GN) one K4
+             for w_0 = A_hat r_0, then per iteration one
+             K5 warp_pipelined_sweep  n = A_hat w and the hat-space
+             Ghysels-Vanroose recurrences (u = r, q = s, m = w), with the
+             next gamma = <r, r> and dd = <w, r>; alpha and beta come from
+             those as 0-d device tensors (solver/core.py pcg_pipelined).
+
+Variant choice as in stream_solver.py:725-760: GN runs pipelined, LM
+classic; variant= picks one (the pipelined kernel's LM mode is not ported:
+ROADMAP.md queue B).  Every vector is the solver's flat unknown layout
+(Offset (H, W, 2) then Angle (H, W, 1)); the kernels read their one-pixel
+halo in place, so nothing is padded.  The kernel wrappers run their plain
+torch versions (warp_hat_apply_plain, warp_pipelined_sweep_plain) for CPU
+tensors, so on a CPU plan engine="stream" runs both backends on the plain
+versions.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..solver.core import _safe_div
+from . import build
+from .pcg_update import pcg_update
+from .warp_cuda import (WarpOperator, _flat_keep, _operands, _shapes,
+                        warp_jtj_apply_plain)
+
+# engine="auto" routes image_warping to this engine at these sizes.  They
+# are the JAX package's crossovers (opt_tpu/ops/stream_solver.py:234-235),
+# measured on a TPU v5e: GN from 2048^2 pixels; LM from 512^2, where the
+# JAX package's whole-solve kernel still holds the grid (its VMEM budget
+# model, not ported, admits LM grids up to about 393,216 padded pixels),
+# so LM takes this engine only above 512^2.  They stay until this card's
+# own comparison of the two engines replaces them (ROADMAP.md).
+AUTO_STREAM_MIN_PIXELS = 2048 * 2048
+AUTO_STREAM_MIN_PIXELS_LM = 512 * 512
+
+VARIANTS = ("pipelined", "classic")
+
+
+def prefers_stream(plan):
+    """True when engine="auto" sends this image_warping plan to "stream"
+    rather than the whole-grid "cuda" engine."""
+    pixels = math.prod(plan.dims)
+    if plan.config.uses_lambda:
+        return pixels > AUTO_STREAM_MIN_PIXELS_LM
+    return pixels >= AUTO_STREAM_MIN_PIXELS
+
+
+def pick_variant(uses_lambda, variant=None):
+    """The backend a plan runs: pipelined for GN, classic for LM, unless
+    variant names one."""
+    if variant is None:
+        return "classic" if uses_lambda else "pipelined"
+    if variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}: {variant!r}")
+    if variant == "pipelined" and uses_lambda:
+        raise NotImplementedError(
+            "the pipelined kernel's Levenberg-Marquardt mode is not ported "
+            "to opt_tpu_torch yet (ROADMAP.md queue B item 2)")
+    return variant
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
+                         beta=None):
+    """(p, A_hat p, <p, A_hat p>) for p = r + beta p_prev (p = r when
+    p_prev is None), A_hat p = sq J^T J (sq p) + scs p at the kept pixels
+    and 0 at the excluded ones."""
+    p = r if p_prev is None else r + beta * p_prev
+    jtj, _ = warp_jtj_apply_plain(x, sq * p, ur, cons, mask, params)
+    ap = sq * jtj
+    if scs is not None:
+        ap = ap + scs * p
+    H, W = mask.shape[:2]
+    ap = torch.where(_flat_keep(mask.view(H, W) == 0), ap,
+                     torch.zeros((), dtype=ap.dtype, device=ap.device))
+    return p, ap, torch.dot(p, ap)
+
+
+def warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs, w_in,
+                               w_out, z, s, p, delta, r, alpha, beta):
+    """One pipelined PCG sweep, in place: n = A_hat w_in, then
+    z = n + beta z, s = w + beta s, p = r + beta p, delta += alpha p,
+    r -= alpha s, w_out = w - alpha z.  Returns (<r, r>, <w_out, r>)."""
+    _, n, _ = warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, w_in)
+    z.copy_(n + beta * z)
+    s.copy_(w_in + beta * s)
+    p.copy_(r + beta * p)
+    delta.copy_(delta + alpha * p)
+    r.copy_(r - alpha * s)
+    w_out.copy_(w_in - alpha * z)
+    return torch.dot(r, r), torch.dot(w_out, r)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def warp_hat_apply(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
+                   beta=None):
+    """K4: (p, A_hat p, <p, A_hat p>) -- kernel on CUDA, plain on CPU.
+    beta is a 0-d device tensor, given with p_prev; p is a new buffer
+    (r itself when p_prev is None)."""
+    if build.all_on_cpu(x, ur, cons, mask, params, sq, scs, r, p_prev, beta):
+        return warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, r,
+                                    p_prev, beta)
+    if (p_prev is None) != (beta is None):
+        raise ValueError("warp_hat_apply: p_prev and beta come together")
+    H, W = mask.shape[:2]
+    n = 3 * H * W
+    build.check_tensors(
+        "warp_hat_apply",
+        {**_shapes(H, W), "sq": (n,), "scs": (n,), "r": (n,),
+         "p_prev": (n,), "beta": ()},
+        **_operands(x=x, ur=ur, cons=cons, mask=mask, params=params, sq=sq,
+                    scs=scs, r=r, p_prev=p_prev, beta=beta))
+    lib = build.library()
+    p = torch.empty_like(r) if p_prev is not None else r
+    ap = torch.empty_like(r)
+    parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=r.dtype,
+                        device=r.device)
+    rc = lib.opt_warp_hat_apply(
+        build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(mask),
+        build.ptr(params), build.ptr(sq), build.ptr(scs), build.ptr(r),
+        build.ptr(p_prev), build.ptr(beta),
+        build.ptr(p) if p_prev is not None else None, build.ptr(ap),
+        build.ptr(parts), H, W, build.stream())
+    build.check(rc, "warp_hat_apply")
+    warp_hat_apply.launches += 1
+    return p, ap, torch.sum(parts)
+
+
+def warp_pipelined_sweep(x, ur, cons, mask, params, sq, scs, w_in, w_out, z,
+                         s, p, delta, r, alpha, beta):
+    """K5: one pipelined PCG sweep, updating z, s, p, delta, r in place
+    and writing w_out -- kernel on CUDA, plain on CPU.  alpha and beta are
+    0-d device tensors.  Returns (<r, r>, <w_out, r>) of the new values."""
+    if build.all_on_cpu(x, ur, cons, mask, params, sq, scs, w_in, w_out, z,
+                        s, p, delta, r, alpha, beta):
+        return warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs,
+                                          w_in, w_out, z, s, p, delta, r,
+                                          alpha, beta)
+    H, W = mask.shape[:2]
+    n = 3 * H * W
+    vecs = dict(sq=sq, scs=scs, w_in=w_in, w_out=w_out, z=z, s=s, p=p,
+                delta=delta, r=r)
+    build.check_tensors(
+        "warp_pipelined_sweep",
+        {**_shapes(H, W), **{k: (n,) for k in vecs}, "alpha": (),
+         "beta": ()},
+        **_operands(x=x, ur=ur, cons=cons, mask=mask, params=params,
+                    alpha=alpha, beta=beta, **vecs))
+    if w_in.data_ptr() == w_out.data_ptr():
+        raise ValueError("warp_pipelined_sweep: w_in and w_out must be two "
+                         "buffers (neighbouring blocks read w_in's halo)")
+    lib = build.library()
+    blocks = lib.opt_warp_blocks(H, W)
+    g_parts = torch.empty(blocks, dtype=r.dtype, device=r.device)
+    d_parts = torch.empty(blocks, dtype=r.dtype, device=r.device)
+    rc = lib.opt_warp_pipelined_sweep(
+        build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(mask),
+        build.ptr(params), build.ptr(sq), build.ptr(scs), build.ptr(w_in),
+        build.ptr(w_out), build.ptr(z), build.ptr(s), build.ptr(p),
+        build.ptr(delta), build.ptr(r), build.ptr(alpha), build.ptr(beta),
+        build.ptr(g_parts), build.ptr(d_parts), H, W, build.stream())
+    build.check(rc, "warp_pipelined_sweep")
+    warp_pipelined_sweep.launches += 1
+    return torch.sum(g_parts), torch.sum(d_parts)
+
+
+warp_hat_apply.launches = 0
+warp_pipelined_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the engine
+# ---------------------------------------------------------------------------
+
+
+class StreamOperator(WarpOperator):
+    """WarpOperator (cost, outer, mask, model_cost on K1/K3) whose inner
+    PCG solve is one of the two hat-space backends, given to the solver as
+    pcg_backend."""
+
+    def __init__(self, data, uses_lambda, variant=None):
+        super().__init__(data)
+        self.uses_lambda = uses_lambda
+        self.variant = pick_variant(uses_lambda, variant)
+        self.pcg_backend = (self._pipelined if self.variant == "pipelined"
+                            else self._classic)
+
+    def _hat_apply(self, sq, scs, r, p_prev=None, beta=None):
+        return warp_hat_apply(self._x, self.ur, self.cons, self.mask_img,
+                              self.params, sq, scs, r, p_prev, beta)
+
+    def _classic(self, sq, scs, b_hat, sp):
+        """Classic PCG on A_hat d_hat = b_hat (stream_solver.py:763-1200):
+        K4 with the beta step fused, then K2 in hat mode; LM adds the
+        periodic exact reset and the Q/zeta exit."""
+        lm = self.uses_lambda
+        period = int(sp["residual_reset_period"])
+        q_tol = float(sp["q_tolerance"])
+        delta = torch.zeros_like(b_hat)
+        r = b_hat
+        p = torch.zeros_like(b_hat)  # beta = 0 at it 0 reads it: not garbage
+        an = torch.dot(b_hat, b_hat)
+        beta = torch.zeros_like(an)
+        Q0 = torch.zeros_like(an)
+        brk = torch.zeros((), dtype=torch.bool, device=an.device)
+        for it in range(int(sp["lIterations"])):
+            p, ap, pap = self._hat_apply(sq, scs, r, p, beta)
+            alpha = _safe_div(an, pap)
+            if lm:  # after the zeta exit alpha = 0 leaves delta as it was
+                alpha = torch.where(brk, 0.0, alpha)
+            delta, r, _, bn, q = pcg_update(alpha, p, ap, delta, r, None,
+                                            b_hat if lm else None)
+            if lm and (it + 1) % period == 0:
+                # r = b_hat - A_hat delta, exactly (stream_solver.py:1118)
+                r = b_hat - self._hat_apply(sq, scs, delta)[1]
+                bn = torch.dot(r, r)
+                q = 0.5 * torch.dot(delta, r + b_hat)
+            beta = _safe_div(bn, an)
+            an = bn
+            if lm:
+                zeta = (it + 1) * _safe_div(q - Q0, q)
+                brk = brk | (zeta < q_tol)
+                Q0 = q
+        return delta
+
+    def _pipelined(self, sq, scs, b_hat, sp):
+        """Pipelined PCG on A_hat d_hat = b_hat (stream_solver.py:
+        1216-1700, GN): one K4 for w_0, then one K5 per iteration."""
+        r = b_hat.clone()
+        z, s, p, delta = (torch.zeros_like(b_hat) for _ in range(4))
+        gamma = torch.dot(b_hat, b_hat)
+        _, w, dd = self._hat_apply(sq, scs, r)
+        w_next = torch.empty_like(w)
+        zero = torch.zeros_like(gamma)
+        gamma_prev = alpha_prev = None
+        for it in range(int(sp["lIterations"])):
+            if it == 0:
+                beta = zero
+                alpha = _safe_div(gamma, dd)
+            else:
+                beta = _safe_div(gamma, gamma_prev)
+                alpha = _safe_div(gamma,
+                                  dd - beta * _safe_div(gamma, alpha_prev))
+            g2, dd2 = warp_pipelined_sweep(
+                self._x, self.ur, self.cons, self.mask_img, self.params, sq,
+                scs, w, w_next, z, s, p, delta, r, alpha, beta)
+            w, w_next = w_next, w
+            gamma_prev, alpha_prev = gamma, alpha
+            gamma, dd = g2, dd2
+        return delta

@@ -1,5 +1,6 @@
-"""The image_warping Gauss-Newton operator on hand-written CUDA kernels
-(port of the work inside opt_tpu/ops/vmem_solver.py).
+"""The image_warping Gauss-Newton / Levenberg-Marquardt operator on
+hand-written CUDA kernels (port of the work inside
+opt_tpu/ops/vmem_solver.py).
 
 On the TPU, VmemSolver runs the whole solve of any centered grid energy in
 one Pallas kernel whose body traces the energy's JAX evaluator.  CUDA
@@ -9,9 +10,11 @@ energies.image_warping -- the main path -- and every other energy runs the
 plain engine (compile/plan_fns.FuncsOperator).  The outer loop and PCG stay
 in solver/core.py; this module supplies the operator behind its seam:
 
-  K3 warp_linearize  J^T F, diag(J^T J) and the masked cost at x, or the
-                     cost alone (csrc/warp_kernels.cu)
-  K1 warp_jtj_apply  mask(J^T J p) and <p, Ap> (csrc/warp_kernels.cu)
+  K3 warp_linearize  J^T F, diag(J^T J) and the masked cost at x, the
+                     cost alone, or LM's model cost 0.5 sum mask(F + J d)^2
+                     (csrc/warp_kernels.cu)
+  K1 warp_jtj_apply  mask(J^T J p + ctc p) and <p, Ap>; ctc is LM's CtC
+                     diagonal (csrc/warp_kernels.cu)
   K2 pcg_update      the PCG Step2 (ops/pcg_update.py, csrc/pcg_update.cu)
 
 Beside each kernel wrapper sits a closed-form plain torch version of the
@@ -38,15 +41,14 @@ OFFSETS = ((1, 0), (-1, 0), (0, 1), (0, -1))
 
 
 def supports(plan):
-    """True when the plan is the energy these kernels hold, in f32, GN, on
-    a CUDA device."""
+    """True when the plan is the energy these kernels hold, in f32, on a
+    CUDA device (GN and LM)."""
     return supports_energy(plan) and plan.device.type == "cuda"
 
 
 def supports_energy(plan):
     return (plan.problem.energy is energies.image_warping
-            and plan.funcs.dtype == torch.float32
-            and not plan.config.uses_lambda)
+            and plan.funcs.dtype == torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -89,8 +91,8 @@ def _flat_keep(keep):
                       keep.reshape(-1)))
 
 
-def warp_jtj_apply_plain(x, p, ur, cons, mask, params):
-    """(mask(J^T J p), <p, Ap>) at linearization point x."""
+def warp_jtj_apply_plain(x, p, ur, cons, mask, params, ctc=None):
+    """(mask(J^T J p + ctc p), <p, Ap>) at linearization point x."""
     H, W = mask.shape[:2]
     w_fit, w_reg = params[0], params[1]
     mask2 = mask.view(H, W)
@@ -111,25 +113,32 @@ def warp_jtj_apply_plain(x, p, ur, cons, mask, params):
     fit = (cons >= 0).all(-1, keepdim=True)
     accO = accO + torch.where(fit, w_fit * (w_fit * pO), zero)
     ap = torch.cat((accO.reshape(-1), accA.reshape(-1)))
+    if ctc is not None:
+        ap = ap + ctc * p
     ap = torch.where(_flat_keep(keep), ap, zero)
     return ap, torch.dot(p, ap)
 
 
-def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False):
+def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False,
+                         delta=None):
     """(J^T F, diag(J^T J), masked cost) at x; J^T F and diag are None
-    when cost_only."""
+    when cost_only.  Given delta, the cost is LM's model cost
+    0.5 sum mask(F + J delta)^2 at x, and J^T F and diag are None."""
     H, W = mask.shape[:2]
     w_fit, w_reg = params[0], params[1]
     mask2 = mask.view(H, W)
     keep = mask2 == 0
+    cost_only = cost_only or delta is not None
     O, A = _split(x, H, W)
+    if delta is not None:
+        dO, dA = _split(delta, H, W)
     s, c = torch.sin(A), torch.cos(A)
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     ssq = torch.zeros((H, W), dtype=x.dtype, device=x.device)
     jO = torch.zeros_like(O)
     jA = torch.zeros_like(A)
-    dO = torch.zeros_like(O)
-    dA = torch.zeros_like(A)
+    gO = torch.zeros_like(O)
+    gA = torch.zeros_like(A)
     for dx, dy in OFFSETS:
         valid = _valid(keep, mask2, dx, dy)
         v3 = valid[..., None]
@@ -137,6 +146,10 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False):
         rot = torch.stack((c * e[..., 0] - s * e[..., 1],
                            s * e[..., 0] + c * e[..., 1]), dim=-1)
         r = torch.where(v3, w_reg * ((O - _shift(O, dx, dy)) - rot), zero)
+        if delta is not None:
+            jd = w_reg * ((dO - _shift(dO, dx, dy))
+                          - _drot(s, c, e) * dA[..., None])
+            r = r + torch.where(v3, jd, zero)
         ssq = ssq + (r * r).sum(-1)
         if cost_only:
             continue
@@ -144,18 +157,21 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False):
         jO = jO + w_reg * r - _shift(w_reg * r, -dx, -dy)
         jA = jA + (G * r).sum(-1)
         vw = torch.where(valid, w_reg * w_reg, zero)
-        dO = dO + (vw + _shift(vw, -dx, -dy))[..., None]
-        dA = dA + (G * G).sum(-1)
+        gO = gO + (vw + _shift(vw, -dx, -dy))[..., None]
+        gA = gA + (G * G).sum(-1)
     fit = (cons >= 0).all(-1, keepdim=True)
-    f = torch.where(fit, w_fit * (O - cons), zero)
+    f = w_fit * (O - cons)
+    if delta is not None:
+        f = f + w_fit * dO
+    f = torch.where(fit, f, zero)
     ssq = ssq + (f * f).sum(-1)
     cost = 0.5 * torch.sum(torch.where(keep, ssq, zero))
     if cost_only:
         return None, None, cost
     jO = jO + w_fit * f
-    dO = dO + torch.where(fit, w_fit * w_fit, zero)
+    gO = gO + torch.where(fit, w_fit * w_fit, zero)
     jtf = torch.cat((jO.reshape(-1), jA.reshape(-1)))
-    diag = torch.cat((dO.reshape(-1), dA.reshape(-1)))
+    diag = torch.cat((gO.reshape(-1), gA.reshape(-1)))
     return jtf, diag, cost
 
 
@@ -166,50 +182,63 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False):
 
 def _shapes(H, W):
     n = 3 * H * W
-    return {"x": (n,), "p": (n,), "ur": (H, W, 2), "cons": (H, W, 2),
-            "mask": (H, W, 1), "params": (2,)}
+    return {"x": (n,), "p": (n,), "ctc": (n,), "delta": (n,),
+            "ur": (H, W, 2), "cons": (H, W, 2), "mask": (H, W, 1),
+            "params": (2,)}
 
 
-def warp_jtj_apply(x, p, ur, cons, mask, params):
-    """K1: (mask(J^T J p), <p, Ap>) -- kernel on CUDA, plain on CPU."""
-    if build.all_on_cpu(x, p, ur, cons, mask, params):
-        return warp_jtj_apply_plain(x, p, ur, cons, mask, params)
+def _operands(**tensors):
+    """The named tensors that are present (None marks an absent one)."""
+    return {k: v for k, v in tensors.items() if v is not None}
+
+
+def warp_jtj_apply(x, p, ur, cons, mask, params, ctc=None):
+    """K1: (mask(J^T J p + ctc p), <p, Ap>) -- kernel on CUDA, plain on
+    CPU."""
+    if build.all_on_cpu(x, p, ur, cons, mask, params, ctc):
+        return warp_jtj_apply_plain(x, p, ur, cons, mask, params, ctc)
     H, W = mask.shape[:2]
-    build.check_tensors("warp_jtj_apply", _shapes(H, W), x=x, p=p, ur=ur,
-                        cons=cons, mask=mask, params=params)
+    build.check_tensors("warp_jtj_apply", _shapes(H, W), **_operands(
+        x=x, p=p, ur=ur, cons=cons, mask=mask, params=params, ctc=ctc))
     lib = build.library()
     ap = torch.empty_like(p)
     parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=p.dtype,
                         device=p.device)
     rc = lib.opt_warp_jtj_apply(
         build.ptr(x), build.ptr(p), build.ptr(ur), build.ptr(cons),
-        build.ptr(mask), build.ptr(params), build.ptr(ap), build.ptr(parts),
-        H, W, build.stream())
+        build.ptr(mask), build.ptr(params), build.ptr(ctc), build.ptr(ap),
+        build.ptr(parts), H, W, build.stream())
     build.check(rc, "warp_jtj_apply")
     warp_jtj_apply.launches += 1
     return ap, torch.sum(parts)
 
 
-def warp_linearize(x, ur, cons, mask, params, cost_only=False):
+def warp_linearize(x, ur, cons, mask, params, cost_only=False, delta=None):
     """K3: (J^T F, diag(J^T J), masked cost) at x -- kernel on CUDA, plain
-    on CPU.  cost_only skips J^T F and diag (returned as None)."""
-    if build.all_on_cpu(x, ur, cons, mask, params):
-        return warp_linearize_plain(x, ur, cons, mask, params, cost_only)
+    on CPU.  cost_only skips J^T F and diag (returned as None); given
+    delta, the cost is LM's model cost 0.5 sum mask(F + J delta)^2."""
+    if build.all_on_cpu(x, ur, cons, mask, params, delta):
+        return warp_linearize_plain(x, ur, cons, mask, params, cost_only,
+                                    delta)
     H, W = mask.shape[:2]
-    build.check_tensors("warp_linearize", _shapes(H, W), x=x, ur=ur,
-                        cons=cons, mask=mask, params=params)
+    build.check_tensors("warp_linearize", _shapes(H, W), **_operands(
+        x=x, ur=ur, cons=cons, mask=mask, params=params, delta=delta))
     lib = build.library()
     parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=x.dtype,
                         device=x.device)
     jtf = diag = None
-    if not cost_only:
+    if delta is not None:
+        mode = 2
+    elif cost_only:
+        mode = 1
+    else:
+        mode = 0
         jtf = torch.empty_like(x)
         diag = torch.empty_like(x)
     rc = lib.opt_warp_linearize(
         build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(mask),
-        build.ptr(params), build.ptr(jtf) if jtf is not None else None,
-        build.ptr(diag) if diag is not None else None, build.ptr(parts),
-        H, W, int(cost_only), build.stream())
+        build.ptr(params), build.ptr(delta), build.ptr(jtf), build.ptr(diag),
+        build.ptr(parts), H, W, mode, build.stream())
     build.check(rc, "warp_linearize")
     warp_linearize.launches += 1
     return jtf, diag, torch.sum(parts)
@@ -222,8 +251,11 @@ warp_linearize.launches = 0
 class WarpOperator:
     """The kernel-backed operator for the solver seam (solver/core.py).
 
-    outer(x) makes x the linearization point for apply(); the exclusion
-    mask reads only the Mask constant, so it is fixed per bind."""
+    outer(x) makes x the linearization point for apply() and model_cost();
+    the exclusion mask reads only the Mask constant, so it is fixed per
+    bind."""
+
+    pcg_backend = None
 
     def __init__(self, data):
         im = data["images"]
@@ -250,8 +282,12 @@ class WarpOperator:
         return torch.where(self._excl, torch.zeros((), dtype=v.dtype,
                                                    device=v.device), v)
 
-    def apply(self, p):
+    def apply(self, p, ctc=None):
         return warp_jtj_apply(self._x, p, self.ur, self.cons, self.mask_img,
-                              self.params)
+                              self.params, ctc)
+
+    def model_cost(self, delta):
+        return warp_linearize(self._x, self.ur, self.cons, self.mask_img,
+                              self.params, delta=delta)[2]
 
     update = staticmethod(pcg_update)

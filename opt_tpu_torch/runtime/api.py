@@ -14,12 +14,16 @@ NewState(device="cuda") asks for the card and raises where there is none;
 the default is the CPU.  Inputs arrive as numpy arrays (or tensors already
 on that device) and bind() puts them there.
 
-Two engines run the solver (solver/core.py) behind its operator seam:
+Three engines run the solver (solver/core.py) behind its operator seam:
 "torch", the plain engine for every supported energy
-(compile/plan_fns.FuncsOperator), and "cuda", the hand-written kernels for
-image_warping (ops/warp_cuda.WarpOperator).  engine="auto" picks "cuda"
-exactly when warp_cuda.supports(plan): a decision on the energy, dtype,
-solver kind and device, never a fallback after a failure.
+(compile/plan_fns.FuncsOperator); "cuda", the hand-written whole-grid
+kernels for image_warping (ops/warp_cuda.WarpOperator); and "stream",
+image_warping's inner PCG on the streamed hat-space kernels
+(ops/stream_cuda.StreamOperator), for large grids.  engine="auto" picks a
+kernel engine exactly when warp_cuda.supports(plan) -- a decision on the
+energy, dtype and device, never a fallback after a failure -- and between
+the two by stream_cuda.prefers_stream (the grid's size and the solver
+kind).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch
 from ..compile.plan_fns import FuncsOperator, ProblemFunctions
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
-from ..ops import warp_cuda
+from ..ops import stream_cuda, warp_cuda
 from ..solver.core import (
     SOLVER_PARAMETER_DEFAULTS,
     Layout,
@@ -41,7 +45,7 @@ from .timing import KernelTimer
 
 GN_KINDS = ("gaussNewtonGPU", "gauss_newton", "gaussNewton", "GN")
 LM_KINDS = ("LMGPU", "levenberg_marquardt", "levenbergMarquardt", "LM")
-ENGINES = ("torch", "cuda")
+ENGINES = ("torch", "cuda", "stream")
 
 
 class Problem:
@@ -175,7 +179,11 @@ class Plan:
          self._full_solve_fn) = make_solver(
             self.config, state.dtype, self.funcs.use_preconditioner)
         self.solver_params = dict(SOLVER_PARAMETER_DEFAULTS)
+        # the streamed engine's PCG backend: None picks pipelined for GN
+        # and classic for LM (stream_cuda.pick_variant)
+        self.stream_variant = None
         self.engine = None  # the engine of the last init() or solve()
+        self.variant = None  # and its stream backend, if it ran one
         self._state = None
         self._op = None
         self._cleaned = False
@@ -254,26 +262,41 @@ class Plan:
     # -- engines -----------------------------------------------------------------
 
     def _pick_engine(self, engine):
-        """Resolve engine="auto": "cuda" when the hand-written kernels hold
-        this plan (warp_cuda.supports: image_warping, f32, GN, on a CUDA
-        device), else "torch".  An explicit "cuda" needs only the energy
-        to match; on CPU tensors its kernel wrappers run their plain
-        closed forms."""
+        """Resolve engine="auto" as the JAX package's auto route does for
+        2-D f32 grids (opt_tpu/runtime/api.py:719-768): when the
+        hand-written kernels hold this plan (warp_cuda.supports:
+        image_warping, f32, on a CUDA device), "stream" for large grids
+        (stream_cuda.prefers_stream: GN from 2048^2 pixels, LM above
+        512^2) and "cuda" below; else "torch".  An explicit "cuda" or
+        "stream" needs only the energy to match; on CPU tensors their
+        kernel wrappers run their plain versions."""
         if engine == "auto":
-            return "cuda" if warp_cuda.supports(self) else "torch"
+            if not warp_cuda.supports(self):
+                return "torch"
+            return "stream" if stream_cuda.prefers_stream(self) else "cuda"
         if engine not in ENGINES:
             raise ValueError(f"engine must be auto or one of {ENGINES}: "
                              f"{engine!r}")
-        if engine == "cuda" and not warp_cuda.supports_energy(self):
+        if engine != "torch" and not warp_cuda.supports_energy(self):
             raise ValueError(
-                "engine='cuda' holds only energies.image_warping, f32, "
-                "Gauss-Newton")
+                f"engine={engine!r} holds only energies.image_warping, f32")
         return engine
 
     def _operator(self, engine, data):
         if engine == "cuda":
             return warp_cuda.WarpOperator(data)
+        if engine == "stream":
+            return stream_cuda.StreamOperator(
+                data, self.config.uses_lambda, self.stream_variant)
         return FuncsOperator(self.funcs, data, self.layout)
+
+    def _bind_engine(self, engine, inputs):
+        """Pick the engine, bind the inputs and build its operator."""
+        self.engine = self._pick_engine(engine)
+        x, data = self.bind(inputs)
+        self._op = self._operator(self.engine, data)
+        self.variant = getattr(self._op, "variant", None)
+        return x
 
     def _sync(self):
         if self.timer.enabled and self.device.type == "cuda":
@@ -283,9 +306,7 @@ class Plan:
 
     def init(self, inputs, engine="auto"):
         """Opt_ProblemInit: bind data, compute the initial cost."""
-        self.engine = self._pick_engine(engine)
-        x, data = self.bind(inputs)
-        self._op = self._operator(self.engine, data)
+        x = self._bind_engine(engine, inputs)
         self._cleaned = False
         with self.timer.event("init"):
             self._state = self._init_fn(x, self._op, self.solver_params)
@@ -327,11 +348,10 @@ class Plan:
         """Opt_ProblemSolve: init and the whole outer loop with no host
         synchronization inside; returns the final cost.
 
-        engine: "auto" (see _pick_engine), "torch" or "cuda".  A kernel
-        error propagates: there is no fallback to another engine."""
-        self.engine = self._pick_engine(engine)
-        x, data = self.bind(inputs)
-        self._op = self._operator(self.engine, data)
+        engine: "auto" (see _pick_engine), "torch", "cuda" or "stream".
+        A kernel error propagates: there is no fallback to another
+        engine."""
+        x = self._bind_engine(engine, inputs)
         with self.timer.event("solve"):
             self._state = self._full_solve_fn(x, self._op, self.solver_params)
             self._sync()
@@ -371,9 +391,13 @@ class Plan:
 
     def save_state(self, path):
         assert self._state is not None, "nothing to save; call init() first"
-        flat = {f"x.{n}": v.cpu().numpy() for n, v in self.x.items()}
+        flat = {}
         for k, v in self._state.items():
-            if k != "x":
+            if k == "x" or (k == "ssq" and v.ndim):
+                # per-unknown arrays, as the JAX package writes them
+                for n, arr in self.layout.views(v).items():
+                    flat[f"{k}.{n}"] = arr.cpu().numpy()
+            else:
                 flat[k] = v.cpu().numpy()
         np.savez(path, **flat)
 
@@ -397,6 +421,8 @@ class Plan:
             if key not in st:
                 raise ValueError(f"{path}: checkpoint missing {key!r}")
         st["x"] = self.layout.pack(st["x"])
+        if isinstance(st.get("ssq"), dict):  # LM's saved diagonal
+            st["ssq"] = self.layout.pack(st["ssq"])
         self._state = st
         self._cleaned = False
         return self

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and the two engines' whole solves against each other.  Marked `cuda`; they
+and the engines' whole solves against each other.  Marked `cuda`; they
 skip where torch sees no CUDA device.  They import no JAX, so they also
 run on a machine with the card and no JAX, without tests/conftest.py:
 
@@ -12,7 +12,7 @@ import torch
 
 import chip_smoke
 from opt_tpu_torch.ops import pcg_update as k2
-from opt_tpu_torch.ops import warp_cuda
+from opt_tpu_torch.ops import stream_cuda, warp_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +83,91 @@ def test_pcg_update_kernel_matches_plain(dev, W, H, lm):
     args = (alpha, t["p"], t["ap"], t["delta"], t["r"], t["pre"],
             t["b"] if lm else None)
     _close(k2.pcg_update(*args), k2.pcg_update_plain(*args))
+
+
+# the slice-2 kernels and modes: ragged blocks, and the 2048^2 grid
+HAT_SIZES = [(37, 23), (2048, 2048)]
+
+
+@pytest.mark.parametrize("W,H", HAT_SIZES)
+def test_lm_modes_of_k1_k3_match_plain(dev, W, H):
+    x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
+                                                              dev, seed=5)
+    _close(warp_cuda.warp_jtj_apply(x, t["p"], ur, cons, mask, params,
+                                    t["ctc"]),
+           warp_cuda.warp_jtj_apply_plain(x, t["p"], ur, cons, mask, params,
+                                          t["ctc"]))
+    _close(warp_cuda.warp_linearize(x, ur, cons, mask, params,
+                                    delta=t["delta"]),
+           warp_cuda.warp_linearize_plain(x, ur, cons, mask, params,
+                                          delta=t["delta"]))
+
+
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("W,H", HAT_SIZES)
+def test_pcg_update_hat_mode_matches_plain(dev, W, H, lm):
+    _, _, _, _, _, t = chip_smoke.kernel_operands(torch, W, H, dev, seed=5)
+    alpha = torch.tensor(0.3, dtype=torch.float32, device=dev)
+    args = (alpha, t["p"], t["ap"], t["delta"], t["r"], None,
+            t["b"] if lm else None)
+    got = k2.pcg_update(*args)
+    assert got[2] is got[1]  # z' is r' itself in hat mode
+    _close(got, k2.pcg_update_plain(*args))
+
+
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("W,H", HAT_SIZES)
+def test_hat_apply_kernel_matches_plain(dev, W, H, lm):
+    x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
+                                                              dev, seed=5)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    scs = t["scs"] if lm else None
+    args = (x, ur, cons, mask, params, t["sq"], scs, t["r"])
+    n = stream_cuda.warp_hat_apply.launches
+    _close(stream_cuda.warp_hat_apply(*args, t["p"], beta),
+           stream_cuda.warp_hat_apply_plain(*args, t["p"], beta))
+    _close(stream_cuda.warp_hat_apply(*args),
+           stream_cuda.warp_hat_apply_plain(*args))
+    assert stream_cuda.warp_hat_apply.launches == n + 2
+
+
+@pytest.mark.parametrize("W,H", HAT_SIZES)
+def test_pipelined_sweep_kernel_matches_plain(dev, W, H):
+    x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
+                                                              dev, seed=5)
+    alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    kern, plain = chip_smoke.sweep_case(torch, stream_cuda, x, ur, cons,
+                                        mask, params, t, None, alpha, beta)
+    _close(kern(), plain())
+    w = t["r"].clone()
+    with pytest.raises(ValueError, match="two"):
+        stream_cuda.warp_pipelined_sweep(
+            x, ur, cons, mask, params, t["sq"], None, w, w, t["ap"].clone(),
+            t["b"].clone(), t["p"].clone(), t["delta"].clone(),
+            t["r"].clone(), alpha, beta)
+
+
+@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
+def test_stream_engine_agrees_with_cuda_engine(dev, kind):
+    """Both backends of the stream engine against the whole-grid engine on
+    the card, and repeated stream solves bit for bit."""
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+
+    st = opt_tpu_torch.NewState(device="cuda")
+    plan = st.problem_plan(st.problem_define(energies.image_warping, kind),
+                           [96, 64])
+    plan.set_solver_parameter("nIterations", 3)
+    plan.set_solver_parameter("lIterations", 40)
+    inputs = chip_smoke.warp_inputs(96, 64, seed=6)
+    inputs["Mask"][20, 30] = 1.0
+    cost = plan.solve(inputs, engine="stream")
+    assert plan.variant == ("classic" if kind == "LMGPU" else "pipelined")
+    want = plan.solve(inputs, engine="cuda")
+    assert np.isfinite(cost)
+    assert cost == pytest.approx(want, rel=1e-4)
+    assert plan.solve(inputs, engine="stream") == cost
 
 
 def test_kernels_reject_bad_operands(dev):

@@ -1,6 +1,6 @@
 """The port's Plan lifecycle: init/step against solve, checkpoints from
 the JAX package and from the port, the main path's inputs, and the solver
-modes that are not ported yet."""
+modes that are not ported yet (the materialized Jacobian)."""
 
 import numpy as np
 import pytest
@@ -89,8 +89,8 @@ def test_port_warp_inputs_equal_bench(W, H):
 
 
 @pytest.mark.parametrize("kwargs,kind", [
-    ({}, "LMGPU"),
-    ({"pcg_variant": "pipelined"}, "gaussNewtonGPU"),
+    ({"use_materialized_jacobian": True}, "LMGPU"),
+    ({"use_fused_jtj": True}, "gaussNewtonGPU"),
     ({"use_materialized_jacobian": True}, "gaussNewtonGPU"),
 ])
 def test_unported_solver_modes_raise(kwargs, kind):
