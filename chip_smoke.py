@@ -22,8 +22,8 @@ Phases (any failure raises and the exit code is non-zero):
      solve: device time by kernel and the device's busy share;
   6. hold the slice-2 kernels and modes against their plain versions at
      2048x2048: K4 warp_hat_apply (GN, and LM with scs), K5
-     warp_pipelined_sweep, K1 with LM's ctc, K3's model cost, K2's hat
-     mode (GN and LM);
+     warp_pipelined_sweep (GN, and its LM mode), K1 with LM's ctc, K3's
+     model cost, K2's hat mode (GN and LM);
   7. run the slice-2 paths through engine="auto", each with its own
      launch counts zeroed just before it and read just after, its final
      cost held against the JAX package's CPU value:
@@ -35,7 +35,23 @@ Phases (any failure raises and the exit code is non-zero):
      2048x2048: warm solves of engine="stream" and engine="cuda" (best of
      3 each), and one profiled solve of each engine and kind at
      2048x2048;
-  9. print {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+  9. hold the slice-3 kernels and modes against their plain versions at
+     37x23x11 and 128^3: K6 vol_hat_apply (GN and LM, with and without
+     p_prev), K7 vol_pipelined_sweep (GN and LM), K8 vol_linearize (J^T F
+     and diag, cost only, model cost);
+ 10. run the slice-3 paths, volumetric ARAP at 128^3, 8x100, on
+     bench.aux_volumetric's inputs, each with its own launch counts, its
+     final cost against the JAX package's CPU value and its warm solve
+     (best of 3):
+       GN through engine="auto"        -> "stream3d", pipelined (K6 + K7),
+       GN with stream_variant classic  -> "stream3d", classic (K6 + K2 hat),
+       LM through engine="auto"        -> "stream3d", pipelined (K6 + K7),
+     all with K8 for the outer step; and profile the GN pipelined and the
+     LM solves;
+ 11. print {"kernels": [...]} (K1-K8: launches over the paths, agreement,
+     times, and the bound: the least time the card could take for each
+     kernel's bytes and operations) and, last, {"ok": true, "device":
+     {...}}.
 
 Exits non-zero, printing no result, where torch sees no CUDA device.
 """
@@ -81,6 +97,48 @@ COST_RTOL = 2e-4
 KERNEL_RTOL = 1e-5
 TIMING_REPS = 200
 BIG_TIMING_REPS = 20
+# The slice-3 paths: volumetric ARAP at VOL^3 on volume_inputs(VOL), 8 outer
+# x 100 PCG.  (label, solver kind, Plan.stream_variant, the variant that
+# engine="auto" must run, the opt_tpu (JAX, CPU) final cost).  The costs
+# are the JAX package's solves in double precision: its float32 solves on
+# the CPU end 3.0e-4 (GN, 52.11311340332031) and 3.1e-4 (LM,
+# 52.15800476074219) away from them, more than COST_RTOL, where the TPU's
+# float32 XLA solve of the same GN problem ends at 52.1288
+# (BENCH_r05.json) and the port's on an H100, whose sums are per-block
+# trees, within 7e-6.  Each cost is
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu'); \
+#     import opt_tpu, chip_smoke; from opt_tpu import energies; \
+#     s = opt_tpu.NewState(double_precision=True); \
+#     p = s.problem_plan(s.problem_define( \
+#     energies.volumetric_mesh_deformation, 'gaussNewtonGPU'), \
+#     [128, 128, 128]); p.set_solver_parameter('nIterations', 8); \
+#     p.set_solver_parameter('lIterations', 100); \
+#     print(repr(p.solve(chip_smoke.volume_inputs(128), engine='xla')))"
+# with 'LMGPU' for LM; they took 685 s and 709 s on a CPU.
+VOL = 128
+VOL_OUTER, VOL_LINEAR = 8, 100
+VOL_PATHS = (
+    ("128^3 GN", "gaussNewtonGPU", None, "pipelined", 52.12877722531129),
+    ("128^3 GN classic", "gaussNewtonGPU", "classic", "classic",
+     52.12877722531129),
+    ("128^3 LM", "LMGPU", None, "pipelined", 52.1739656981525),
+)
+# the odd-sized volume of the slice-3 kernel checks: ragged 32x8 blocks
+SMALL_VOL = (37, 23, 11)
+# The H100 SXM's published peaks (NVIDIA's data sheet): device memory
+# and float32 outside the tensor cores, for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations per pixel, voxel or element of each kernel and mode, counted
+# from its source with a sincosf taken as 40: K1, K3, K4 and K5 evaluate
+# five rotations a pixel, K6, K7 and K8's full mode seven rotations (21
+# sincosf) and twelve derivative products a voxel, K8's cost modes one
+# rotation and six products, K2 a few per element.
+OPS = {"warp_jtj_apply": 280, "warp_linearize": 300,
+       "warp_linearize(cost)": 100, "warp_hat_apply": 300,
+       "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 1600,
+       "vol_pipelined_sweep": 1650, "vol_linearize": 1450,
+       "vol_linearize(cost)": 300, "vol_linearize(model_cost)": 600}
 
 
 def warp_inputs(W, H, seed=0):
@@ -101,6 +159,34 @@ def warp_inputs(W, H, seed=0):
         "Mask": mask,
         "w_fitSqrt": np.sqrt(0.5),
         "w_regSqrt": np.sqrt(2.0),
+    }
+
+
+def volume_inputs(n, seed=0):
+    """The volumetric paths' inputs at n^3: a copy of the ones
+    bench.aux_volumetric builds inline (a test holds the two equal).  A
+    regular grid, the H = 0 plane pinned where it is and the H = n - 1
+    plane pulled by (2.5, -2.5, 0); every other voxel unconstrained
+    (-inf)."""
+    rng = np.random.RandomState(seed)
+    ii, jj, kk = np.meshgrid(
+        np.arange(n, dtype=np.float32),
+        np.arange(n, dtype=np.float32),
+        np.arange(n, dtype=np.float32),
+        indexing="ij",
+    )
+    grid = np.stack([ii, jj, kk], axis=-1)
+    cons = np.full_like(grid, -np.inf)
+    cons[:, 0] = grid[:, 0]
+    cons[:, n - 1] = grid[:, n - 1] + np.array([2.5, -2.5, 0.0],
+                                               np.float32)
+    return {
+        "Offset": grid + 0.01 * rng.randn(*grid.shape).astype(np.float32),
+        "UrShape": grid.copy(),
+        "Angle": np.zeros_like(grid),
+        "Constraints": cons.astype(np.float32),
+        "w_fitSqrt": np.sqrt(1.0),
+        "w_regSqrt": np.sqrt(0.05),
     }
 
 
@@ -169,22 +255,42 @@ def cuda_ms(torch, fn, reps=TIMING_REPS):
     return t0.elapsed_time(t1) / reps
 
 
+def nbytes(*tensors):
+    """Bytes of the given tensors (None counts nothing)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def bound(n_bytes, n_ops):
+    """(bound_ms, bound_by): the least time the card could take for a
+    kernel that moves n_bytes (each input read once, each output written
+    once) and does n_ops float32 operations, at the published peaks."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def check_cases(torch, cases, reps):
-    """Each (kernel, plain) pair on the same inputs: agreement within
-    KERNEL_RTOL, and both timed.  name -> {max_abs_err, ms, plain_ms}."""
+    """Each case (kernel, plain, bytes, operations) on the same inputs:
+    agreement within KERNEL_RTOL, both timed, and the kernel's bound.
+    name -> {max_abs_err, ms, plain_ms, bound_ms, bound_by}."""
     out = {}
-    for name, (kern, plain) in cases.items():
+    for name, (kern, plain, n_bytes, n_ops) in cases.items():
         got, want = kern(), plain()
         torch.cuda.synchronize()
         rel, absmax = rel_err(got, want)
         ok = rel <= KERNEL_RTOL
         ms, plain_ms = cuda_ms(torch, kern, reps), cuda_ms(torch, plain, reps)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         print(f"kernel {name}: max rel err {rel:.3e} (tol {KERNEL_RTOL:.0e})"
               f" max abs err {absmax:.3e}  {ms * 1e3:.1f} us vs plain "
-              f"{plain_ms * 1e3:.1f} us  {'ok' if ok else 'FAIL'}")
+              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}, {n_bytes / 1e6:.1f} MB)  "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
-        out[name] = {"max_abs_err": absmax, "ms": ms, "plain_ms": plain_ms}
+        out[name] = {"max_abs_err": absmax, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
     return out
 
 
@@ -196,49 +302,54 @@ def check_kernels(torch, dev):
     x, ur, cons, mask, params, t = kernel_operands(torch, W, H, dev)
     p = t["p"]
     alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    consts = nbytes(ur, cons, mask, params)
+    angle = x[2 * W * H:]
+    px, n = W * H, p.numel()
     return check_cases(torch, {
         "warp_jtj_apply": (
             lambda: warp_cuda.warp_jtj_apply(x, p, ur, cons, mask, params),
             lambda: warp_cuda.warp_jtj_apply_plain(x, p, ur, cons, mask,
-                                                   params)),
+                                                   params),
+            consts + nbytes(angle, p, p), OPS["warp_jtj_apply"] * px),
         "warp_linearize": (
             lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params),
             lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask,
-                                                   params)),
+                                                   params),
+            consts + nbytes(x, x, x), OPS["warp_linearize"] * px),
         "warp_linearize(cost_only)": (
             lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params,
                                              cost_only=True),
             lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask, params,
-                                                   cost_only=True)),
+                                                   cost_only=True),
+            consts + nbytes(x), OPS["warp_linearize(cost)"] * px),
         "pcg_update": (
             lambda: k2.pcg_update(alpha, p, t["ap"], t["delta"], t["r"],
                                   t["pre"]),
             lambda: k2.pcg_update_plain(alpha, p, t["ap"], t["delta"],
-                                        t["r"], t["pre"])),
+                                        t["r"], t["pre"]),
+            8 * nbytes(p), OPS["pcg_update"] * n),
         "pcg_update(lm)": (
             lambda: k2.pcg_update(alpha, p, t["ap"], t["delta"], t["r"],
                                   t["pre"], t["b"]),
             lambda: k2.pcg_update_plain(alpha, p, t["ap"], t["delta"],
-                                        t["r"], t["pre"], t["b"])),
+                                        t["r"], t["pre"], t["b"]),
+            9 * nbytes(p), OPS["pcg_update"] * n),
     }, TIMING_REPS)
 
 
-def sweep_case(torch, stream_cuda, x, ur, cons, mask, params, t, scs, alpha,
-               beta):
-    """K5 and its plain version as (kernel, plain) callables, each running
-    one sweep in place on its own copy of the same state (so their first
-    calls agree; the timing's later calls carry that state on)."""
-    def run(fn):
-        z, s, p, d, r = (t[k].clone() for k in ("ap", "b", "p", "delta", "r"))
-        w_out = torch.empty_like(r)
+def sweep_case(torch, fn, consts, t, alpha, beta, b_hat=None):
+    """A pipelined sweep (K5 or K7, or its plain version) as a callable
+    that runs one sweep in place on its own copy of the state (so a kernel
+    and its plain version agree on their first calls; the timing's later
+    calls carry that state on).  consts: the operands before w_in."""
+    z, s, p, d, r = (t[k].clone() for k in ("ap", "b", "p", "delta", "r"))
+    w_out = torch.empty_like(r)
 
-        def call():
-            g, dd = fn(x, ur, cons, mask, params, t["sq"], scs, t["pre"],
-                       w_out, z, s, p, d, r, alpha, beta)
-            return g, dd, w_out, z, s, p, d, r
-        return call
-    return (run(stream_cuda.warp_pipelined_sweep),
-            run(stream_cuda.warp_pipelined_sweep_plain))
+    def call():
+        g, dd, q = fn(*consts, t["pre"], w_out, z, s, p, d, r, alpha, beta,
+                      b_hat=b_hat)
+        return g, dd, q, w_out, z, s, p, d, r
+    return call
 
 
 def check_big_kernels(torch, dev):
@@ -253,40 +364,139 @@ def check_big_kernels(torch, dev):
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     hat = stream_cuda.warp_hat_apply
     hat_plain = stream_cuda.warp_hat_apply_plain
+    consts = nbytes(ur, cons, mask, params)
+    angle = x[2 * BIG * BIG:]
+    px, vec = BIG * BIG, nbytes(p)
+    hat_ops = OPS["warp_hat_apply"] * px
+    sweep_ops = OPS["warp_pipelined_sweep"] * px
+
+    def sweeps(lm):
+        consts_m = (x, ur, cons, mask, params, sq, scs if lm else None)
+        return tuple(sweep_case(torch, fn, consts_m, t, alpha, beta,
+                                t["b"] if lm else None)
+                     for fn in (stream_cuda.warp_pipelined_sweep,
+                                stream_cuda.warp_pipelined_sweep_plain))
+
     cases = {
         "warp_hat_apply(gn)": (
             lambda: hat(x, ur, cons, mask, params, sq, None, t["r"], p, beta),
             lambda: hat_plain(x, ur, cons, mask, params, sq, None, t["r"], p,
-                              beta)),
+                              beta),
+            consts + nbytes(angle) + 5 * vec, hat_ops),
         "warp_hat_apply(lm)": (
             lambda: hat(x, ur, cons, mask, params, sq, scs, t["r"], p, beta),
             lambda: hat_plain(x, ur, cons, mask, params, sq, scs, t["r"], p,
-                              beta)),
-        "warp_pipelined_sweep": sweep_case(
-            torch, stream_cuda, x, ur, cons, mask, params, t, None, alpha,
-            beta),
+                              beta),
+            consts + nbytes(angle) + 6 * vec, hat_ops),
+        "warp_pipelined_sweep": (
+            *sweeps(False), consts + nbytes(angle) + 13 * vec, sweep_ops),
+        "warp_pipelined_sweep(lm)": (
+            *sweeps(True), consts + nbytes(angle) + 15 * vec, sweep_ops),
         "warp_jtj_apply(ctc)": (
             lambda: warp_cuda.warp_jtj_apply(x, p, ur, cons, mask, params,
                                              t["ctc"]),
             lambda: warp_cuda.warp_jtj_apply_plain(x, p, ur, cons, mask,
-                                                   params, t["ctc"])),
+                                                   params, t["ctc"]),
+            consts + nbytes(angle) + 3 * vec, OPS["warp_jtj_apply"] * px),
         "warp_linearize(model_cost)": (
             lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params,
                                              delta=t["delta"]),
             lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask, params,
-                                                   delta=t["delta"])),
+                                                   delta=t["delta"]),
+            consts + nbytes(x) + vec, OPS["warp_linearize(cost)"] * px),
         "pcg_update(hat)": (
             lambda: k2.pcg_update(alpha, p, t["ap"], t["delta"], t["r"],
                                   None),
             lambda: k2.pcg_update_plain(alpha, p, t["ap"], t["delta"],
-                                        t["r"], None)),
+                                        t["r"], None),
+            6 * vec, OPS["pcg_update"] * p.numel()),
         "pcg_update(hat, lm)": (
             lambda: k2.pcg_update(alpha, p, t["ap"], t["delta"], t["r"],
                                   None, t["b"]),
             lambda: k2.pcg_update_plain(alpha, p, t["ap"], t["delta"],
-                                        t["r"], None, t["b"])),
+                                        t["r"], None, t["b"]),
+            7 * vec, OPS["pcg_update"] * p.numel()),
     }
     return check_cases(torch, cases, BIG_TIMING_REPS)
+
+
+def volume_kernel_operands(torch, W, H, D, dev, seed=1):
+    """Seeded operands for the volume kernel checks, on the device:
+    (x, ur, cons, params, vectors).  Angles ~0.3 rad, about a third of the
+    voxels fit-constrained (the rest -inf), sq = sqrt(pre) > 0 and
+    scs = sq^2 ctc as the LM solver forms them for the hat space."""
+    rng = np.random.RandomState(seed)
+    shape = (D, H, W, 3)
+    cons = np.full(shape, -np.inf, np.float32)
+    pinned = rng.rand(D, H, W) < 0.3
+    cons[pinned] = rng.randn(int(pinned.sum()), 3).astype(np.float32)
+    x = np.concatenate((rng.randn(*shape).reshape(-1),
+                        0.3 * rng.randn(*shape).reshape(-1)))
+    n = x.size
+    vecs = {k: rng.randn(n) for k in ("p", "ap", "delta", "r", "b")}
+    vecs["pre"] = rng.rand(n)
+    vecs["ctc"] = 0.5 + rng.rand(n)
+    t = {k: torch.as_tensor(v.astype(np.float32), device=dev)
+         for k, v in vecs.items()}
+    t["sq"] = torch.sqrt(t["pre"])
+    t["scs"] = t["sq"] * t["sq"] * t["ctc"]
+    as_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return (as_dev(x), as_dev(rng.randn(*shape)), as_dev(cons),
+            as_dev([0.8, 1.3]), t)
+
+
+def check_vol_kernels(torch, dev, dims, reps):
+    """Phase 9: the slice-3 kernels and modes vs their plain versions on a
+    (W, H, D) volume."""
+    from opt_tpu_torch.ops import stream3d_cuda as s3, vol_cuda
+
+    Wv, Hv, Dv = dims
+    x, ur, cons, params, t = volume_kernel_operands(torch, Wv, Hv, Dv, dev)
+    p, sq, scs = t["p"], t["sq"], t["scs"]
+    alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    voxels, vec = Wv * Hv * Dv, nbytes(p)
+    consts = nbytes(ur, cons, params)
+    angle = x[x.numel() // 2:]
+    hat_ops = OPS["vol_hat_apply"] * voxels
+    sweep_ops = OPS["vol_pipelined_sweep"] * voxels
+    lin_ops = OPS["vol_linearize"] * voxels
+    cases = {}
+    for lm in (False, True):
+        mode = "lm" if lm else "gn"
+        scs_m = scs if lm else None
+        for prev in (True, False):
+            extra = (p, beta) if prev else ()
+            cases[f"vol_hat_apply({mode}{', p_prev' if prev else ''})"] = (
+                lambda scs_m=scs_m, extra=extra: s3.vol_hat_apply(
+                    x, ur, cons, params, sq, scs_m, t["r"], *extra),
+                lambda scs_m=scs_m, extra=extra: s3.vol_hat_apply_plain(
+                    x, ur, cons, params, sq, scs_m, t["r"], *extra),
+                consts + nbytes(angle) + (3 + 2 * prev + lm) * vec, hat_ops)
+        consts_m = (x, ur, cons, params, sq, scs_m)
+        b_hat = t["b"] if lm else None
+        cases[f"vol_pipelined_sweep({mode})"] = (
+            sweep_case(torch, s3.vol_pipelined_sweep, consts_m, t, alpha,
+                       beta, b_hat),
+            sweep_case(torch, s3.vol_pipelined_sweep_plain, consts_m, t,
+                       alpha, beta, b_hat),
+            consts + nbytes(angle) + (13 + 2 * lm) * vec, sweep_ops)
+    cases["vol_linearize"] = (
+        lambda: vol_cuda.vol_linearize(x, ur, cons, params),
+        lambda: vol_cuda.vol_linearize_plain(x, ur, cons, params),
+        consts + 3 * vec, lin_ops)
+    cases["vol_linearize(cost_only)"] = (
+        lambda: vol_cuda.vol_linearize(x, ur, cons, params, cost_only=True),
+        lambda: vol_cuda.vol_linearize_plain(x, ur, cons, params,
+                                             cost_only=True),
+        consts + vec, OPS["vol_linearize(cost)"] * voxels)
+    cases["vol_linearize(model_cost)"] = (
+        lambda: vol_cuda.vol_linearize(x, ur, cons, params, delta=t["delta"]),
+        lambda: vol_cuda.vol_linearize_plain(x, ur, cons, params,
+                                             delta=t["delta"]),
+        consts + 2 * vec, OPS["vol_linearize(model_cost)"] * voxels)
+    print(f"slice-3 kernels at {Wv}x{Hv}x{Dv}:")
+    return check_cases(torch, cases, reps)
 
 
 def profile_solve(torch, plan, inputs, engine, label, card, wall_ms):
@@ -342,9 +552,22 @@ def new_plan(opt_tpu_torch, energies, kind, size, n_outer, n_linear):
     return plan
 
 
-def check_unknowns(plan, size):
+def new_vol_plan(opt_tpu_torch, energies, kind, variant):
+    state = opt_tpu_torch.NewState(device=DEVICE)
+    plan = state.problem_plan(
+        state.problem_define(energies.volumetric_mesh_deformation, kind),
+        [VOL] * 3)
+    plan.set_solver_parameter("nIterations", VOL_OUTER)
+    plan.set_solver_parameter("lIterations", VOL_LINEAR)
+    plan.stream_variant = variant
+    return plan
+
+
+def check_unknowns(plan, shapes):
+    """The unknowns (name -> expected shape) are finite and of that
+    shape."""
     x = plan.unknowns()
-    for n, shape in (("Offset", (size, size, 2)), ("Angle", (size, size, 1))):
+    for n, shape in shapes.items():
         if x[n].shape != shape or not np.isfinite(x[n]).all():
             raise AssertionError(f"unknown {n}: shape {x[n].shape} or "
                                  "non-finite values")
@@ -375,6 +598,27 @@ def expected_launches(kind, engine, n_outer, n_linear, period=10):
             "warp_linearize": k3}
 
 
+def expected_launches3d(kind, variant, n_outer, n_linear, period=10):
+    """Launch counts one volume solve makes, by kernel name."""
+    lm = kind == "LMGPU"
+    resets = n_outer * (n_linear // period) if lm else 0
+    k8 = 1 + n_outer * (3 if lm else 2)
+    n = n_outer * n_linear
+    if variant == "classic":
+        return {"vol_hat_apply": n + resets, "pcg_update": n,
+                "vol_linearize": k8}
+    # w_0 per outer step, and r = b - A delta, w = A r at each reset
+    return {"vol_hat_apply": n_outer + 2 * resets, "vol_pipelined_sweep": n,
+            "vol_linearize": k8}
+
+
+def check_launches(label, launches, want):
+    got = {k: launches[k] for k in want}
+    if got != want or any(launches[k] for k in launches if k not in want):
+        raise AssertionError(f"{label}: launch counts {launches}, want "
+                             f"{want} and no others")
+
+
 def main():
     import torch
 
@@ -384,7 +628,8 @@ def main():
     import opt_tpu_torch
     from opt_tpu_torch import energies
     from opt_tpu_torch.ops import build, pcg_update as k2
-    from opt_tpu_torch.ops import stream_cuda, warp_cuda
+    from opt_tpu_torch.ops import stream3d_cuda, stream_cuda, vol_cuda
+    from opt_tpu_torch.ops import warp_cuda
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -408,7 +653,8 @@ def main():
 
     kernels = (warp_cuda.warp_jtj_apply, k2.pcg_update,
                warp_cuda.warp_linearize, stream_cuda.warp_hat_apply,
-               stream_cuda.warp_pipelined_sweep)
+               stream_cuda.warp_pipelined_sweep, stream3d_cuda.vol_hat_apply,
+               stream3d_cuda.vol_pipelined_sweep, vol_cuda.vol_linearize)
     total = {k.__name__: 0 for k in kernels}
 
     def drive(plan, inputs):
@@ -439,7 +685,7 @@ def main():
         raise AssertionError(f"kernel launch counts {launches}: want "
                              f"{n_apply} K1, {n_apply} K2, >= {2 * N_OUTER}"
                              " K3")
-    check_unknowns(plan, W)
+    check_unknowns(plan, {"Offset": (H, W, 2), "Angle": (H, W, 1)})
 
     # the plain engine's one timed solve is also the cost check's
     cost_torch, torch_ms = timed_solve(torch, plan, inputs, "torch")
@@ -475,13 +721,10 @@ def main():
             raise AssertionError(
                 f"{label}: engine='auto' picked {plan.engine!r} "
                 f"{plan.variant!r}, not {want_engine!r} {want_variant!r}")
-        want = expected_launches(kind, want_engine, n_outer, n_linear)
-        got = {k: launches[k] for k in want}
-        if got != want or any(launches[k] for k in launches
-                              if k not in want):
-            raise AssertionError(f"{label}: launch counts {launches}, want "
-                                 f"{want} and no others")
-        check_unknowns(plan, size)
+        check_launches(label, launches, expected_launches(
+            kind, want_engine, n_outer, n_linear))
+        check_unknowns(plan, {"Offset": (size, size, 2),
+                              "Angle": (size, size, 1)})
         check_cost(label, cost, want_cost)
         best_of_3(torch, plan, path_inputs, plan.engine,
                   f"{label} {n_outer}x{n_linear} (warm)", card)
@@ -501,6 +744,32 @@ def main():
         for eng in ("stream", "cuda"):
             profile_solve(torch, plan, big_inputs, eng, name, card, best[eng])
 
+    # -- slice 3: the volume kernels, then its paths at 128^3 ---------------
+    check_vol_kernels(torch, dev, SMALL_VOL, TIMING_REPS)
+    timings.update(check_vol_kernels(torch, dev, (VOL,) * 3,
+                                     BIG_TIMING_REPS))
+    vol_inputs = volume_inputs(VOL)
+    vol_shapes = {n: (VOL,) * 3 + (3,) for n in ("Offset", "Angle")}
+    for label, kind, variant, want_variant, want_cost in VOL_PATHS:
+        plan = new_vol_plan(opt_tpu_torch, energies, kind, variant)
+        cost, ms, launches = drive(plan, vol_inputs)
+        print(f"path {label} {VOL_OUTER}x{VOL_LINEAR}: engine={plan.engine} "
+              f"variant={plan.variant} {ms:.1f} ms (cold) launches="
+              f"{launches}")
+        if (plan.engine, plan.variant) != ("stream3d", want_variant):
+            raise AssertionError(
+                f"{label}: engine='auto' picked {plan.engine!r} "
+                f"{plan.variant!r}, not 'stream3d' {want_variant!r}")
+        check_launches(label, launches, expected_launches3d(
+            kind, want_variant, VOL_OUTER, VOL_LINEAR))
+        check_unknowns(plan, vol_shapes)
+        check_cost(label, cost, want_cost)
+        name = f"{label} {VOL_OUTER}x{VOL_LINEAR}"
+        best = best_of_3(torch, plan, vol_inputs, "auto", f"{name} (warm)",
+                         card)
+        if variant is None:  # the GN and LM paths engine="auto" picks
+            profile_solve(torch, plan, vol_inputs, "auto", name, card, best)
+
     rows = []
     for name, src, repl, case in (
         ("warp_jtj_apply", "opt_tpu_torch/csrc/warp_kernels.cu",
@@ -513,13 +782,23 @@ def main():
          "opt_tpu/ops/stream_solver.py:763", "warp_hat_apply(lm)"),
         ("warp_pipelined_sweep", "opt_tpu_torch/csrc/stream_kernels.cu",
          "opt_tpu/ops/stream_solver.py:1216", "warp_pipelined_sweep"),
+        ("vol_hat_apply", "opt_tpu_torch/csrc/stream3d_kernels.cu",
+         "opt_tpu/ops/stream3d.py:842", "vol_hat_apply(lm, p_prev)"),
+        ("vol_pipelined_sweep", "opt_tpu_torch/csrc/stream3d_kernels.cu",
+         "opt_tpu/ops/stream3d.py:407", "vol_pipelined_sweep(gn)"),
+        ("vol_linearize", "opt_tpu_torch/csrc/vol_kernels.cu",
+         "opt_tpu/ops/stream3d.py:407", "vol_linearize"),
     ):
         err = max(v["max_abs_err"] for k, v in timings.items()
                   if k.split("(")[0] == name)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": total[name],
                      "max_abs_err": err, "ms": timings[case]["ms"],
-                     "plain_ms": timings[case]["plain_ms"]})
+                     "plain_ms": timings[case]["plain_ms"],
+                     "bound_ms": timings[case]["bound_ms"],
+                     "bound_by": timings[case]["bound_by"],
+                     # no single PyTorch call computes any of these
+                     "library_ms": None})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

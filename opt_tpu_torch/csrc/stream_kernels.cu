@@ -8,8 +8,11 @@
 //       windows, with the beta step p = r + beta p_prev fused in
 //       (fuse_beta), and LM's scs diagonal;
 //   K5  StreamSolverHBM._build_pipelined_kernel (Ghysels-Vanroose
-//       pipelined PCG, one sweep per iteration): the whole GN sweep,
-//       n = A_hat w, the five recurrences and the two next dots.
+//       pipelined PCG, one sweep per iteration): the whole sweep,
+//       n = A_hat w, the five recurrences and the two next dots, and in
+//       LM mode the scs diagonal and the per-sweep
+//       q = 0.5 <delta, r + b_hat> (the same LM mode as K7's,
+//       stream3d_kernels.cu).
 // In the hat space A_hat = S (J^T J [+ CtC]) S with S = diag(sq),
 // sq = sqrt(pre), M_hat = I, so z == r and no preconditioner is read;
 // excluded unknowns have sq = 0, which zeroes their rows and columns
@@ -37,8 +40,8 @@
 // nothing stays in the 50 MB L2 between sweeps.  K4 reads x, sq, r, p_prev
 // and the constants (about 60 B per pixel, 72 B with scs) and writes p and
 // A_hat p (24 B); K5 reads x, sq, w_in and the constants and reads and
-// writes z, s, p, delta, r (about 100 B in, 72 B out per pixel).  One
-// thread per pixel with neighbour reads from L1/L2 keeps each vector to one
+// writes z, s, p, delta, r (about 100 B in, 72 B out per pixel; in LM
+// also scs and b_hat, 24 B in).  One thread per pixel with neighbour reads from L1/L2 keeps each vector to one
 // pass per sweep; the operand formed at a neighbour costs a few extra
 // flops, not extra passes.
 
@@ -140,6 +143,7 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
                             const float* __restrict__ params,
                             const float* __restrict__ sq,
                             const float* __restrict__ scs,
+                            const float* __restrict__ b_hat,
                             const float* __restrict__ w_in,
                             float* __restrict__ w_out, float* __restrict__ z,
                             float* __restrict__ s, float* __restrict__ p,
@@ -147,7 +151,8 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
                             const float* __restrict__ alpha_ptr,
                             const float* __restrict__ beta_ptr,
                             float* __restrict__ gamma_partials,
-                            float* __restrict__ dd_partials, int H, int W) {
+                            float* __restrict__ dd_partials,
+                            float* __restrict__ q_partials, int H, int W) {
   __shared__ float sh[kThreads];
   const Grid g{H, W};
   const int j = blockIdx.x * kBX + threadIdx.x;
@@ -155,7 +160,7 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
   const int HW = H * W;
   const float alpha = *alpha_ptr, beta = *beta_ptr;
   const HatRead read{w_in, nullptr, sq, 0.f, HW};
-  float gam = 0.f, dd = 0.f;
+  float gam = 0.f, dd = 0.f, q = 0.f;
   if (g.inside(i, j)) {
     const int k = i * W + j;
     const int idx[3] = {2 * k, 2 * k + 1, 2 * HW + k};
@@ -180,6 +185,7 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
       w_out[e] = wn;
       gam += rn * rn;
       dd += wn * rn;
+      if (b_hat != nullptr) q += 0.5f * (dn * (rn + b_hat[e]));
     }
   }
   const float gs = block_sum(gam, sh);
@@ -187,6 +193,10 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
   if (thread_rank() == 0) {
     gamma_partials[block_rank()] = gs;
     dd_partials[block_rank()] = ds;
+  }
+  if (b_hat != nullptr) {
+    const float qs = block_sum(q, sh);
+    if (thread_rank() == 0) q_partials[block_rank()] = qs;
   }
 }
 
@@ -209,15 +219,17 @@ extern "C" int opt_warp_hat_apply(const float* x, const float* ur,
   return (int)cudaGetLastError();
 }
 
+// scs is null for GN; b_hat and q_partials are null together outside LM
 extern "C" int opt_warp_pipelined_sweep(
     const float* x, const float* ur, const float* cons, const float* mask,
     const float* params, const float* sq, const float* scs,
-    const float* w_in, float* w_out, float* z, float* s, float* p,
-    float* delta, float* r, const float* alpha, const float* beta,
-    float* gamma_partials, float* dd_partials, int H, int W, void* stream) {
+    const float* b_hat, const float* w_in, float* w_out, float* z, float* s,
+    float* p, float* delta, float* r, const float* alpha, const float* beta,
+    float* gamma_partials, float* dd_partials, float* q_partials, int H,
+    int W, void* stream) {
   warp_pipelined_sweep_kernel<<<warp_grid(H, W), dim3(kBX, kBY), 0,
                                 (cudaStream_t)stream>>>(
-      x, ur, cons, mask, params, sq, scs, w_in, w_out, z, s, p, delta, r,
-      alpha, beta, gamma_partials, dd_partials, H, W);
+      x, ur, cons, mask, params, sq, scs, b_hat, w_in, w_out, z, s, p, delta,
+      r, alpha, beta, gamma_partials, dd_partials, q_partials, H, W);
   return (int)cudaGetLastError();
 }

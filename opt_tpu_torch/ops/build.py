@@ -45,9 +45,13 @@ SIGNATURES = {
     "opt_warp_jtj_apply": [_P] * 9 + [_I, _I, _P],
     "opt_warp_linearize": [_P] * 9 + [_I, _I, _I, _P],
     "opt_warp_hat_apply": [_P] * 13 + [_I, _I, _P],
-    "opt_warp_pipelined_sweep": [_P] * 18 + [_I, _I, _P],
+    "opt_warp_pipelined_sweep": [_P] * 20 + [_I, _I, _P],
     "opt_pcg_update_blocks": [_I],
     "opt_pcg_update": [_P] * 12 + [_I, _I, _P],
+    "opt_vol_blocks": [_I, _I, _I],
+    "opt_vol_linearize": [_P] * 8 + [_I] * 4 + [_P],
+    "opt_vol_hat_apply": [_P] * 12 + [_I] * 3 + [_P],
+    "opt_vol_pipelined_sweep": [_P] * 19 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -153,6 +157,11 @@ def all_on_cpu(*tensors):
     plain versions.  A call that mixes devices goes to the kernel's checks,
     which refuse it."""
     return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
+def present(**tensors):
+    """The named tensors that are present (None marks an absent one)."""
+    return {k: v for k, v in tensors.items() if v is not None}
 
 
 def check_tensors(name, shapes, **tensors):

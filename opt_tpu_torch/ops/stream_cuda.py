@@ -1,6 +1,7 @@
 """The streamed engine for large image_warping grids: the inner PCG solve
 in the Jacobi-scaled ("hat") space on hand-written CUDA kernels (port of
-opt_tpu/ops/stream_solver.py StreamSolverHBM).
+opt_tpu/ops/stream_solver.py StreamSolverHBM), and the two hat-space PCG
+loops that this engine and the volumes' (ops/stream3d_cuda.py) share.
 
 Past the sizes where the whole grid's solve stays on chip, the JAX package
 runs the inner PCG of each outer step as one of two streamed Pallas
@@ -10,7 +11,8 @@ A_hat = S (J^T J [+ CtC]) S, S = diag(sq), sq = sqrt(pre), the
 preconditioner is the identity, so z == r; excluded unknowns have sq = 0,
 which is their masking (stream_solver.py:17-28).  The solver hands the
 backend sq, scs = sq^2 ctc (LM; None for GN) and b_hat = sq b and gets
-d_hat back, with delta = sq d_hat.  The two backends:
+d_hat back, with delta = sq d_hat.  The two backends (classic_pcg and
+pipelined_pcg below), over an energy's hat apply and pipelined sweep:
 
   classic    (row 4, StreamSolverHBM._build_backend_kernel) per iteration
              K4 warp_hat_apply  p = r + beta p_prev, A_hat p, <p, A_hat p>
@@ -19,21 +21,24 @@ d_hat back, with delta = sq d_hat.  The two backends:
              and, in LM, every residual_reset_period iterations one more
              K4 on delta for the exact reset r = b_hat - A_hat delta, and
              the Q/zeta exit, predicated as in solver/core.py;
-  pipelined  (row 5, StreamSolverHBM._build_pipelined_kernel, GN) one K4
-             for w_0 = A_hat r_0, then per iteration one
+  pipelined  (row 5, StreamSolverHBM._build_pipelined_kernel) one K4 for
+             w_0 = A_hat r_0, then per iteration one
              K5 warp_pipelined_sweep  n = A_hat w and the hat-space
              Ghysels-Vanroose recurrences (u = r, q = s, m = w), with the
-             next gamma = <r, r> and dd = <w, r>; alpha and beta come from
-             those as 0-d device tensors (solver/core.py pcg_pipelined).
+             next gamma = <r, r> and dd = <w, r> (and LM's q); alpha and
+             beta come from those as 0-d device tensors (solver/core.py
+             pcg_pipelined).  LM adds the Q/zeta exit, predicated as delta
+             frozen by alpha = 0, and every residual_reset_period
+             iterations the residual replacement r = b_hat - A_hat delta,
+             w = A_hat r, one K4 each (stream_solver.py:1216-1700).
 
 Variant choice as in stream_solver.py:725-760: GN runs pipelined, LM
-classic; variant= picks one (the pipelined kernel's LM mode is not ported:
-ROADMAP.md queue B).  Every vector is the solver's flat unknown layout
-(Offset (H, W, 2) then Angle (H, W, 1)); the kernels read their one-pixel
-halo in place, so nothing is padded.  The kernel wrappers run their plain
-torch versions (warp_hat_apply_plain, warp_pipelined_sweep_plain) for CPU
-tensors, so on a CPU plan engine="stream" runs both backends on the plain
-versions.
+classic; variant= picks either for either.  Every vector is the solver's
+flat unknown layout (Offset (H, W, 2) then Angle (H, W, 1)); the kernels
+read their one-pixel halo in place, so nothing is padded.  The kernel
+wrappers run their plain torch versions (warp_hat_apply_plain,
+warp_pipelined_sweep_plain) for CPU tensors, so on a CPU plan
+engine="stream" runs both backends on the plain versions.
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ import torch
 from ..solver.core import _safe_div
 from . import build
 from .pcg_update import pcg_update
-from .warp_cuda import (WarpOperator, _flat_keep, _operands, _shapes,
+from .warp_cuda import (WarpOperator, _flat_keep, _shapes,
                         warp_jtj_apply_plain)
 
 # engine="auto" routes image_warping to this engine at these sizes.  They
@@ -75,12 +80,12 @@ def pick_variant(uses_lambda, variant=None):
     variant names one."""
     if variant is None:
         return "classic" if uses_lambda else "pipelined"
+    return check_variant(variant)
+
+
+def check_variant(variant):
     if variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}: {variant!r}")
-    if variant == "pipelined" and uses_lambda:
-        raise NotImplementedError(
-            "the pipelined kernel's Levenberg-Marquardt mode is not ported "
-            "to opt_tpu_torch yet (ROADMAP.md queue B item 2)")
     return variant
 
 
@@ -105,19 +110,30 @@ def warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
     return p, ap, torch.dot(p, ap)
 
 
-def warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs, w_in,
-                               w_out, z, s, p, delta, r, alpha, beta):
-    """One pipelined PCG sweep, in place: n = A_hat w_in, then
+def sweep_update_plain(n, w_in, w_out, z, s, p, delta, r, alpha, beta,
+                       b_hat=None):
+    """The pipelined sweep's recurrences, in place, given n = A_hat w_in:
     z = n + beta z, s = w + beta s, p = r + beta p, delta += alpha p,
-    r -= alpha s, w_out = w - alpha z.  Returns (<r, r>, <w_out, r>)."""
-    _, n, _ = warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, w_in)
+    r -= alpha s, w_out = w - alpha z.  Returns (<r, r>, <w_out, r>, q),
+    q = 0.5 <delta, r + b_hat> given b_hat (LM), else None."""
     z.copy_(n + beta * z)
     s.copy_(w_in + beta * s)
     p.copy_(r + beta * p)
     delta.copy_(delta + alpha * p)
     r.copy_(r - alpha * s)
     w_out.copy_(w_in - alpha * z)
-    return torch.dot(r, r), torch.dot(w_out, r)
+    q = None if b_hat is None else 0.5 * torch.dot(delta, r + b_hat)
+    return torch.dot(r, r), torch.dot(w_out, r), q
+
+
+def warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs, w_in,
+                               w_out, z, s, p, delta, r, alpha, beta,
+                               b_hat=None):
+    """One pipelined PCG sweep, in place (sweep_update_plain on
+    n = A_hat w_in).  Returns (<r, r>, <w_out, r>, q)."""
+    _, n, _ = warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, w_in)
+    return sweep_update_plain(n, w_in, w_out, z, s, p, delta, r, alpha, beta,
+                              b_hat)
 
 
 # ---------------------------------------------------------------------------
@@ -141,8 +157,8 @@ def warp_hat_apply(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
         "warp_hat_apply",
         {**_shapes(H, W), "sq": (n,), "scs": (n,), "r": (n,),
          "p_prev": (n,), "beta": ()},
-        **_operands(x=x, ur=ur, cons=cons, mask=mask, params=params, sq=sq,
-                    scs=scs, r=r, p_prev=p_prev, beta=beta))
+        **build.present(x=x, ur=ur, cons=cons, mask=mask, params=params,
+                        sq=sq, scs=scs, r=r, p_prev=p_prev, beta=beta))
     lib = build.library()
     p = torch.empty_like(r) if p_prev is not None else r
     ap = torch.empty_like(r)
@@ -160,45 +176,159 @@ def warp_hat_apply(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
 
 
 def warp_pipelined_sweep(x, ur, cons, mask, params, sq, scs, w_in, w_out, z,
-                         s, p, delta, r, alpha, beta):
+                         s, p, delta, r, alpha, beta, b_hat=None):
     """K5: one pipelined PCG sweep, updating z, s, p, delta, r in place
     and writing w_out -- kernel on CUDA, plain on CPU.  alpha and beta are
-    0-d device tensors.  Returns (<r, r>, <w_out, r>) of the new values."""
+    0-d device tensors; b_hat (LM) adds q = 0.5 <delta, r + b_hat>.
+    Returns (<r, r>, <w_out, r>, q) of the new values, q None for GN."""
     if build.all_on_cpu(x, ur, cons, mask, params, sq, scs, w_in, w_out, z,
-                        s, p, delta, r, alpha, beta):
+                        s, p, delta, r, alpha, beta, b_hat):
         return warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs,
                                           w_in, w_out, z, s, p, delta, r,
-                                          alpha, beta)
+                                          alpha, beta, b_hat)
     H, W = mask.shape[:2]
     n = 3 * H * W
-    vecs = dict(sq=sq, scs=scs, w_in=w_in, w_out=w_out, z=z, s=s, p=p,
-                delta=delta, r=r)
+    vecs = dict(sq=sq, scs=scs, b_hat=b_hat, w_in=w_in, w_out=w_out, z=z,
+                s=s, p=p, delta=delta, r=r)
     build.check_tensors(
         "warp_pipelined_sweep",
         {**_shapes(H, W), **{k: (n,) for k in vecs}, "alpha": (),
          "beta": ()},
-        **_operands(x=x, ur=ur, cons=cons, mask=mask, params=params,
-                    alpha=alpha, beta=beta, **vecs))
-    if w_in.data_ptr() == w_out.data_ptr():
-        raise ValueError("warp_pipelined_sweep: w_in and w_out must be two "
-                         "buffers (neighbouring blocks read w_in's halo)")
+        **build.present(x=x, ur=ur, cons=cons, mask=mask, params=params,
+                        alpha=alpha, beta=beta, **vecs))
+    check_two_buffers("warp_pipelined_sweep", w_in, w_out)
     lib = build.library()
-    blocks = lib.opt_warp_blocks(H, W)
-    g_parts = torch.empty(blocks, dtype=r.dtype, device=r.device)
-    d_parts = torch.empty(blocks, dtype=r.dtype, device=r.device)
+    g_parts, d_parts, q_parts = sweep_partials(lib.opt_warp_blocks(H, W), r,
+                                               b_hat)
     rc = lib.opt_warp_pipelined_sweep(
         build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(mask),
-        build.ptr(params), build.ptr(sq), build.ptr(scs), build.ptr(w_in),
-        build.ptr(w_out), build.ptr(z), build.ptr(s), build.ptr(p),
-        build.ptr(delta), build.ptr(r), build.ptr(alpha), build.ptr(beta),
-        build.ptr(g_parts), build.ptr(d_parts), H, W, build.stream())
+        build.ptr(params), build.ptr(sq), build.ptr(scs), build.ptr(b_hat),
+        build.ptr(w_in), build.ptr(w_out), build.ptr(z), build.ptr(s),
+        build.ptr(p), build.ptr(delta), build.ptr(r), build.ptr(alpha),
+        build.ptr(beta), build.ptr(g_parts), build.ptr(d_parts),
+        build.ptr(q_parts), H, W, build.stream())
     build.check(rc, "warp_pipelined_sweep")
     warp_pipelined_sweep.launches += 1
-    return torch.sum(g_parts), torch.sum(d_parts)
+    return sweep_sums(g_parts, d_parts, q_parts)
+
+
+def check_two_buffers(name, w_in, w_out):
+    if w_in.data_ptr() == w_out.data_ptr():
+        raise ValueError(f"{name}: w_in and w_out must be two buffers "
+                         "(neighbouring blocks read w_in's halo)")
+
+
+def sweep_partials(blocks, r, b_hat):
+    """The per-block partials a pipelined sweep writes: gamma, dd and (LM
+    only, else None) q."""
+    new = lambda: torch.empty(blocks, dtype=r.dtype, device=r.device)
+    return new(), new(), (new() if b_hat is not None else None)
+
+
+def sweep_sums(g_parts, d_parts, q_parts):
+    return (torch.sum(g_parts), torch.sum(d_parts),
+            None if q_parts is None else torch.sum(q_parts))
 
 
 warp_hat_apply.launches = 0
 warp_pipelined_sweep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the two hat-space PCG loops, shared with ops/stream3d_cuda.py
+# ---------------------------------------------------------------------------
+
+
+def classic_pcg(hat_apply, b_hat, sp, lm):
+    """Classic PCG on A_hat d_hat = b_hat (stream_solver.py:763-1200,
+    stream3d.py:842-1299): the hat apply with the beta step fused, then K2
+    in hat mode; LM adds the periodic exact reset and the Q/zeta exit.
+
+    hat_apply(r, p_prev=None, beta=None) -> (p, A_hat p, <p, A_hat p>),
+    p = r + beta p_prev (r itself without p_prev)."""
+    period = int(sp["residual_reset_period"])
+    q_tol = float(sp["q_tolerance"])
+    delta = torch.zeros_like(b_hat)
+    r = b_hat
+    p = torch.zeros_like(b_hat)  # beta = 0 at it 0 reads it: not garbage
+    an = torch.dot(b_hat, b_hat)
+    beta = torch.zeros_like(an)
+    Q0 = torch.zeros_like(an)
+    brk = torch.zeros((), dtype=torch.bool, device=an.device)
+    for it in range(int(sp["lIterations"])):
+        p, ap, pap = hat_apply(r, p, beta)
+        alpha = _safe_div(an, pap)
+        if lm:  # after the zeta exit alpha = 0 leaves delta as it was
+            alpha = torch.where(brk, 0.0, alpha)
+        delta, r, _, bn, q = pcg_update(alpha, p, ap, delta, r, None,
+                                        b_hat if lm else None)
+        if lm and (it + 1) % period == 0:
+            # r = b_hat - A_hat delta, exactly (stream_solver.py:1118)
+            r = b_hat - hat_apply(delta)[1]
+            bn = torch.dot(r, r)
+            q = 0.5 * torch.dot(delta, r + b_hat)
+        beta = _safe_div(bn, an)
+        an = bn
+        if lm:
+            zeta = (it + 1) * _safe_div(q - Q0, q)
+            brk = brk | (zeta < q_tol)
+            Q0 = q
+    return delta
+
+
+def pipelined_pcg(hat_apply, sweep, b_hat, sp, lm):
+    """Pipelined PCG on A_hat d_hat = b_hat (stream_solver.py:1216-1700,
+    stream3d.py:407-824): one hat apply for w_0, then one sweep per
+    iteration.  LM adds the Q/zeta exit (alpha = 0 from then on freezes
+    delta, as the JAX while loop's stop does) and, every
+    residual_reset_period iterations, the residual replacement
+    r = b_hat - A_hat delta, w = A_hat r (stream3d.py:776-793).
+
+    sweep(w_in, w_out, z, s, p, delta, r, alpha, beta) runs one sweep in
+    place and returns (<r, r>, <w_out, r>, q), q = 0.5 <delta, r + b_hat>
+    in LM."""
+    period = int(sp["residual_reset_period"])
+    q_tol = float(sp["q_tolerance"])
+    r = b_hat.clone()  # the sweeps update r in place
+    z, s, p, delta = (torch.zeros_like(b_hat) for _ in range(4))
+    gamma = torch.dot(b_hat, b_hat)
+    _, w, dd = hat_apply(r)
+    w_next = torch.empty_like(w)
+    zero = torch.zeros_like(gamma)
+    Q0 = zero
+    brk = torch.zeros((), dtype=torch.bool, device=gamma.device)
+    gamma_prev = alpha_prev = None
+    for it in range(int(sp["lIterations"])):
+        if it == 0:
+            beta = zero
+            alpha = _safe_div(gamma, dd)
+        else:
+            beta = _safe_div(gamma, gamma_prev)
+            alpha = _safe_div(gamma,
+                              dd - beta * _safe_div(gamma, alpha_prev))
+        if lm:
+            alpha = torch.where(brk, 0.0, alpha)
+        g2, dd2, q = sweep(w, w_next, z, s, p, delta, r, alpha, beta)
+        w, w_next = w_next, w
+        if lm and (it + 1) % period == 0:
+            r = b_hat - hat_apply(delta)[1]
+            _, w, dd2 = hat_apply(r)
+            g2 = torch.dot(r, r)
+            q = 0.5 * torch.dot(delta, r + b_hat)
+        if lm:
+            zeta = (it + 1) * _safe_div(q - Q0, q)
+            brk = brk | (zeta < q_tol)
+            Q0 = q
+        gamma_prev, alpha_prev = gamma, alpha
+        gamma, dd = g2, dd2
+    return delta
+
+
+def hat_pcg(variant, hat_apply, sweep, b_hat, sp, lm):
+    """d_hat from the named backend."""
+    if variant == "classic":
+        return classic_pcg(hat_apply, b_hat, sp, lm)
+    return pipelined_pcg(hat_apply, sweep, b_hat, sp, lm)
 
 
 # ---------------------------------------------------------------------------
@@ -215,69 +345,17 @@ class StreamOperator(WarpOperator):
         super().__init__(data)
         self.uses_lambda = uses_lambda
         self.variant = pick_variant(uses_lambda, variant)
-        self.pcg_backend = (self._pipelined if self.variant == "pipelined"
-                            else self._classic)
 
-    def _hat_apply(self, sq, scs, r, p_prev=None, beta=None):
-        return warp_hat_apply(self._x, self.ur, self.cons, self.mask_img,
-                              self.params, sq, scs, r, p_prev, beta)
-
-    def _classic(self, sq, scs, b_hat, sp):
-        """Classic PCG on A_hat d_hat = b_hat (stream_solver.py:763-1200):
-        K4 with the beta step fused, then K2 in hat mode; LM adds the
-        periodic exact reset and the Q/zeta exit."""
+    def pcg_backend(self, sq, scs, b_hat, sp):
         lm = self.uses_lambda
-        period = int(sp["residual_reset_period"])
-        q_tol = float(sp["q_tolerance"])
-        delta = torch.zeros_like(b_hat)
-        r = b_hat
-        p = torch.zeros_like(b_hat)  # beta = 0 at it 0 reads it: not garbage
-        an = torch.dot(b_hat, b_hat)
-        beta = torch.zeros_like(an)
-        Q0 = torch.zeros_like(an)
-        brk = torch.zeros((), dtype=torch.bool, device=an.device)
-        for it in range(int(sp["lIterations"])):
-            p, ap, pap = self._hat_apply(sq, scs, r, p, beta)
-            alpha = _safe_div(an, pap)
-            if lm:  # after the zeta exit alpha = 0 leaves delta as it was
-                alpha = torch.where(brk, 0.0, alpha)
-            delta, r, _, bn, q = pcg_update(alpha, p, ap, delta, r, None,
-                                            b_hat if lm else None)
-            if lm and (it + 1) % period == 0:
-                # r = b_hat - A_hat delta, exactly (stream_solver.py:1118)
-                r = b_hat - self._hat_apply(sq, scs, delta)[1]
-                bn = torch.dot(r, r)
-                q = 0.5 * torch.dot(delta, r + b_hat)
-            beta = _safe_div(bn, an)
-            an = bn
-            if lm:
-                zeta = (it + 1) * _safe_div(q - Q0, q)
-                brk = brk | (zeta < q_tol)
-                Q0 = q
-        return delta
+        consts = (self._x, self.ur, self.cons, self.mask_img, self.params,
+                  sq, scs)
 
-    def _pipelined(self, sq, scs, b_hat, sp):
-        """Pipelined PCG on A_hat d_hat = b_hat (stream_solver.py:
-        1216-1700, GN): one K4 for w_0, then one K5 per iteration."""
-        r = b_hat.clone()
-        z, s, p, delta = (torch.zeros_like(b_hat) for _ in range(4))
-        gamma = torch.dot(b_hat, b_hat)
-        _, w, dd = self._hat_apply(sq, scs, r)
-        w_next = torch.empty_like(w)
-        zero = torch.zeros_like(gamma)
-        gamma_prev = alpha_prev = None
-        for it in range(int(sp["lIterations"])):
-            if it == 0:
-                beta = zero
-                alpha = _safe_div(gamma, dd)
-            else:
-                beta = _safe_div(gamma, gamma_prev)
-                alpha = _safe_div(gamma,
-                                  dd - beta * _safe_div(gamma, alpha_prev))
-            g2, dd2 = warp_pipelined_sweep(
-                self._x, self.ur, self.cons, self.mask_img, self.params, sq,
-                scs, w, w_next, z, s, p, delta, r, alpha, beta)
-            w, w_next = w_next, w
-            gamma_prev, alpha_prev = gamma, alpha
-            gamma, dd = g2, dd2
-        return delta
+        def hat_apply(r, p_prev=None, beta=None):
+            return warp_hat_apply(*consts, r, p_prev, beta)
+
+        def sweep(*state):
+            return warp_pipelined_sweep(*consts, *state,
+                                        b_hat=b_hat if lm else None)
+
+        return hat_pcg(self.variant, hat_apply, sweep, b_hat, sp, lm)

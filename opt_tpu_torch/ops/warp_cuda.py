@@ -187,18 +187,13 @@ def _shapes(H, W):
             "params": (2,)}
 
 
-def _operands(**tensors):
-    """The named tensors that are present (None marks an absent one)."""
-    return {k: v for k, v in tensors.items() if v is not None}
-
-
 def warp_jtj_apply(x, p, ur, cons, mask, params, ctc=None):
     """K1: (mask(J^T J p + ctc p), <p, Ap>) -- kernel on CUDA, plain on
     CPU."""
     if build.all_on_cpu(x, p, ur, cons, mask, params, ctc):
         return warp_jtj_apply_plain(x, p, ur, cons, mask, params, ctc)
     H, W = mask.shape[:2]
-    build.check_tensors("warp_jtj_apply", _shapes(H, W), **_operands(
+    build.check_tensors("warp_jtj_apply", _shapes(H, W), **build.present(
         x=x, p=p, ur=ur, cons=cons, mask=mask, params=params, ctc=ctc))
     lib = build.library()
     ap = torch.empty_like(p)
@@ -221,7 +216,7 @@ def warp_linearize(x, ur, cons, mask, params, cost_only=False, delta=None):
         return warp_linearize_plain(x, ur, cons, mask, params, cost_only,
                                     delta)
     H, W = mask.shape[:2]
-    build.check_tensors("warp_linearize", _shapes(H, W), **_operands(
+    build.check_tensors("warp_linearize", _shapes(H, W), **build.present(
         x=x, ur=ur, cons=cons, mask=mask, params=params, delta=delta))
     lib = build.library()
     parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=x.dtype,

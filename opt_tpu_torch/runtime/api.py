@@ -9,21 +9,23 @@ opt_tpu/runtime/api.py).
   Opt_ProblemSolve        -> plan.solve(inputs)
   Opt_ProblemCurrentCost  -> plan.current_cost()
 
-Every tensor of a plan lives on the state's device, named explicitly:
-NewState(device="cuda") asks for the card and raises where there is none;
-the default is the CPU.  Inputs arrive as numpy arrays (or tensors already
-on that device) and bind() puts them there.
+Every tensor of a plan lives on the state's device.  NewState() puts it
+on the card ("cuda") and raises where torch sees none; NewState(device=
+"cpu") asks for the CPU, as the tests do.  Inputs arrive as numpy arrays
+(or tensors already on that device) and bind() puts them there.
 
-Three engines run the solver (solver/core.py) behind its operator seam:
+Four engines run the solver (solver/core.py) behind its operator seam:
 "torch", the plain engine for every supported energy
 (compile/plan_fns.FuncsOperator); "cuda", the hand-written whole-grid
-kernels for image_warping (ops/warp_cuda.WarpOperator); and "stream",
+kernels for image_warping (ops/warp_cuda.WarpOperator); "stream",
 image_warping's inner PCG on the streamed hat-space kernels
-(ops/stream_cuda.StreamOperator), for large grids.  engine="auto" picks a
-kernel engine exactly when warp_cuda.supports(plan) -- a decision on the
-energy, dtype and device, never a fallback after a failure -- and between
-the two by stream_cuda.prefers_stream (the grid's size and the solver
-kind).
+(ops/stream_cuda.StreamOperator), for large grids; and "stream3d", the
+volumetric ARAP energy's on its own hat-space kernels
+(ops/stream3d_cuda.Stream3DOperator).  engine="auto" picks a kernel engine
+exactly when warp_cuda.supports(plan) or vol_cuda.supports(plan) -- a
+decision on the energy, dtype and device, never a fallback after a
+failure -- and by size: stream_cuda.prefers_stream between "cuda" and
+"stream", stream3d_cuda.prefers_stream3d between "torch" and "stream3d".
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 from ..compile.plan_fns import FuncsOperator, ProblemFunctions
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
-from ..ops import stream_cuda, warp_cuda
+from ..ops import stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
 from ..solver.core import (
     SOLVER_PARAMETER_DEFAULTS,
     Layout,
@@ -45,7 +47,7 @@ from .timing import KernelTimer
 
 GN_KINDS = ("gaussNewtonGPU", "gauss_newton", "gaussNewton", "GN")
 LM_KINDS = ("LMGPU", "levenberg_marquardt", "levenbergMarquardt", "LM")
-ENGINES = ("torch", "cuda", "stream")
+ENGINES = ("torch", "cuda", "stream", "stream3d")
 
 
 class Problem:
@@ -63,14 +65,15 @@ class Problem:
 class OptState:
     """Opt_NewState parity (Opt_InitializationParameters, Opt.h:8-35).
 
-    device: where every tensor of this state's plans lives ("cpu" or
-    "cuda[:i]").  collect_kernel_timing records the host time of each
+    device: where every tensor of this state's plans lives: "cuda[:i]"
+    (the default, which raises where torch sees no CUDA device) or
+    "cpu".  collect_kernel_timing records the host time of each
     phase (init, step_N, solve), synchronizing the device at its end, and
     prints the reference's timing table when a solve finishes."""
 
     def __init__(
         self,
-        device="cpu",
+        device="cuda",
         double_precision=False,
         verbosity=0,
         collect_kernel_timing=False,
@@ -179,8 +182,9 @@ class Plan:
          self._full_solve_fn) = make_solver(
             self.config, state.dtype, self.funcs.use_preconditioner)
         self.solver_params = dict(SOLVER_PARAMETER_DEFAULTS)
-        # the streamed engine's PCG backend: None picks pipelined for GN
-        # and classic for LM (stream_cuda.pick_variant)
+        # the streamed engines' PCG backend: None picks pipelined for GN
+        # and classic for LM on 2-D grids (stream_cuda.pick_variant), and
+        # pipelined for both on volumes (stream3d_cuda.pick_variant3d)
         self.stream_variant = None
         self.engine = None  # the engine of the last init() or solve()
         self.variant = None  # and its stream backend, if it ran one
@@ -263,21 +267,31 @@ class Plan:
 
     def _pick_engine(self, engine):
         """Resolve engine="auto" as the JAX package's auto route does for
-        2-D f32 grids (opt_tpu/runtime/api.py:719-768): when the
-        hand-written kernels hold this plan (warp_cuda.supports:
-        image_warping, f32, on a CUDA device), "stream" for large grids
-        (stream_cuda.prefers_stream: GN from 2048^2 pixels, LM above
-        512^2) and "cuda" below; else "torch".  An explicit "cuda" or
-        "stream" needs only the energy to match; on CPU tensors their
-        kernel wrappers run their plain versions."""
+        f32 grids (opt_tpu/runtime/api.py:719-768): when the hand-written
+        kernels hold this plan on a CUDA device, image_warping goes to
+        "stream" for large grids (stream_cuda.prefers_stream: GN from
+        2048^2 pixels, LM above 512^2) and "cuda" below, and volumetric
+        ARAP to "stream3d" from 64^3 voxels (stream3d_cuda.
+        prefers_stream3d); everything else to "torch".  An explicit kernel
+        engine needs only the energy to match; on CPU tensors its kernel
+        wrappers run their plain versions."""
         if engine == "auto":
-            if not warp_cuda.supports(self):
-                return "torch"
-            return "stream" if stream_cuda.prefers_stream(self) else "cuda"
+            if warp_cuda.supports(self):
+                return ("stream" if stream_cuda.prefers_stream(self)
+                        else "cuda")
+            if (vol_cuda.supports(self)
+                    and stream3d_cuda.prefers_stream3d(self)):
+                return "stream3d"
+            return "torch"
         if engine not in ENGINES:
             raise ValueError(f"engine must be auto or one of {ENGINES}: "
                              f"{engine!r}")
-        if engine != "torch" and not warp_cuda.supports_energy(self):
+        if engine == "stream3d" and not vol_cuda.supports_energy(self):
+            raise ValueError(
+                "engine='stream3d' holds only "
+                "energies.volumetric_mesh_deformation, f32")
+        if (engine in ("cuda", "stream")
+                and not warp_cuda.supports_energy(self)):
             raise ValueError(
                 f"engine={engine!r} holds only energies.image_warping, f32")
         return engine
@@ -287,6 +301,9 @@ class Plan:
             return warp_cuda.WarpOperator(data)
         if engine == "stream":
             return stream_cuda.StreamOperator(
+                data, self.config.uses_lambda, self.stream_variant)
+        if engine == "stream3d":
+            return stream3d_cuda.Stream3DOperator(
                 data, self.config.uses_lambda, self.stream_variant)
         return FuncsOperator(self.funcs, data, self.layout)
 
@@ -348,7 +365,8 @@ class Plan:
         """Opt_ProblemSolve: init and the whole outer loop with no host
         synchronization inside; returns the final cost.
 
-        engine: "auto" (see _pick_engine), "torch", "cuda" or "stream".
+        engine: "auto" (see _pick_engine), "torch", "cuda", "stream" or
+        "stream3d".
         A kernel error propagates: there is no fallback to another
         engine."""
         x = self._bind_engine(engine, inputs)

@@ -12,7 +12,7 @@ import torch
 
 import chip_smoke
 from opt_tpu_torch.ops import pcg_update as k2
-from opt_tpu_torch.ops import stream_cuda, warp_cuda
+from opt_tpu_torch.ops import stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -131,15 +131,22 @@ def test_hat_apply_kernel_matches_plain(dev, W, H, lm):
     assert stream_cuda.warp_hat_apply.launches == n + 2
 
 
+@pytest.mark.parametrize("lm", [False, True])
 @pytest.mark.parametrize("W,H", HAT_SIZES)
-def test_pipelined_sweep_kernel_matches_plain(dev, W, H):
+def test_pipelined_sweep_kernel_matches_plain(dev, W, H, lm):
     x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
                                                               dev, seed=5)
     alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
-    kern, plain = chip_smoke.sweep_case(torch, stream_cuda, x, ur, cons,
-                                        mask, params, t, None, alpha, beta)
-    _close(kern(), plain())
+    consts = (x, ur, cons, mask, params, t["sq"], t["scs"] if lm else None)
+    b_hat = t["b"] if lm else None
+    kern, plain = (chip_smoke.sweep_case(torch, fn, consts, t, alpha, beta,
+                                         b_hat)
+                   for fn in (stream_cuda.warp_pipelined_sweep,
+                              stream_cuda.warp_pipelined_sweep_plain))
+    got = kern()
+    assert (got[2] is None) == (not lm)  # LM's q
+    _close(got, plain())
     w = t["r"].clone()
     with pytest.raises(ValueError, match="two"):
         stream_cuda.warp_pipelined_sweep(
@@ -201,3 +208,129 @@ def test_engines_agree_on_the_card(dev):
     assert cost == pytest.approx(want, rel=1e-4)
     # repeated runs match bit for bit: no float atomics in any kernel
     assert plan.solve(inputs) == cost
+
+
+# the slice-3 kernels: an odd volume, ragged 32x8 blocks on every face
+VOL_DIMS = chip_smoke.SMALL_VOL
+
+
+def _vol_operands(dev):
+    return chip_smoke.volume_kernel_operands(torch, *VOL_DIMS, dev, seed=6)
+
+
+@pytest.mark.parametrize("mode", ["full", "cost_only", "model_cost"])
+def test_vol_linearize_kernel_matches_plain(dev, mode):
+    x, ur, cons, params, t = _vol_operands(dev)
+    kw = {"cost_only": {"cost_only": True},
+          "model_cost": {"delta": t["delta"]}}.get(mode, {})
+    n = vol_cuda.vol_linearize.launches
+    got = vol_cuda.vol_linearize(x, ur, cons, params, **kw)
+    assert vol_cuda.vol_linearize.launches == n + 1
+    _close(got, vol_cuda.vol_linearize_plain(x, ur, cons, params, **kw))
+
+
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("lm", [False, True])
+def test_vol_hat_apply_kernel_matches_plain(dev, lm, prev):
+    x, ur, cons, params, t = _vol_operands(dev)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    args = (x, ur, cons, params, t["sq"], t["scs"] if lm else None, t["r"])
+    extra = (t["p"], beta) if prev else ()
+    n = stream3d_cuda.vol_hat_apply.launches
+    got = stream3d_cuda.vol_hat_apply(*args, *extra)
+    assert stream3d_cuda.vol_hat_apply.launches == n + 1
+    assert (got[0] is t["r"]) == (not prev)
+    _close(got, stream3d_cuda.vol_hat_apply_plain(*args, *extra))
+
+
+@pytest.mark.parametrize("lm", [False, True])
+def test_vol_pipelined_sweep_kernel_matches_plain(dev, lm):
+    x, ur, cons, params, t = _vol_operands(dev)
+    alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    consts = (x, ur, cons, params, t["sq"], t["scs"] if lm else None)
+    b_hat = t["b"] if lm else None
+    kern, plain = (chip_smoke.sweep_case(torch, fn, consts, t, alpha, beta,
+                                         b_hat)
+                   for fn in (stream3d_cuda.vol_pipelined_sweep,
+                              stream3d_cuda.vol_pipelined_sweep_plain))
+    _close(kern(), plain())
+    w = t["r"].clone()
+    with pytest.raises(ValueError, match="two"):
+        stream3d_cuda.vol_pipelined_sweep(
+            *consts, w, w, t["ap"].clone(), t["b"].clone(), t["p"].clone(),
+            t["delta"].clone(), t["r"].clone(), alpha, beta)
+
+
+def _vol_plan(kind, dims, n_outer=3, n_linear=30):
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+
+    st = opt_tpu_torch.NewState(device="cuda")
+    plan = st.problem_plan(st.problem_define(
+        energies.volumetric_mesh_deformation, kind), list(dims))
+    plan.set_solver_parameter("nIterations", n_outer)
+    plan.set_solver_parameter("lIterations", n_linear)
+    return plan
+
+
+@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
+def test_stream3d_backends_agree_on_the_card(dev, kind):
+    """The pipelined and classic 3-D backends against each other (LM with
+    three residual resets in each PCG solve), and repeated solves bit for
+    bit: no float atomics in any kernel."""
+    W, H, D = 40, 20, 12
+    plan = _vol_plan(kind, (W, H, D))
+    dd, hh, ww = np.meshgrid(np.arange(D), np.arange(H), np.arange(W),
+                             indexing="ij")
+    grid = np.stack([dd, hh, ww], axis=-1).astype(np.float32)
+    cons = np.full_like(grid, -np.inf)
+    cons[:, 0] = grid[:, 0]
+    cons[:, -1] = grid[:, -1] + np.array([2.0, -2.0, 1.0], np.float32)
+    rng = np.random.RandomState(7)
+    inputs = {"Offset": grid + 0.01 * rng.randn(*grid.shape).astype(
+                  np.float32),
+              "Angle": (0.1 * rng.randn(*grid.shape)).astype(np.float32),
+              "UrShape": grid, "Constraints": cons,
+              "w_fitSqrt": 1.0, "w_regSqrt": np.sqrt(0.05)}
+    cost = plan.solve(inputs, engine="stream3d")
+    assert plan.variant == "pipelined"
+    assert np.isfinite(cost)
+    assert plan.solve(inputs, engine="stream3d") == cost
+    plan.stream_variant = "classic"
+    classic = plan.solve(inputs, engine="stream3d")
+    assert plan.variant == "classic"
+    assert classic == pytest.approx(cost, rel=1e-4)
+    assert plan.solve(inputs, engine="stream3d") == classic
+
+
+def test_stream3d_launch_failure_raises_with_no_fallback(dev):
+    """A volume of more D planes than a grid's z extent (65,535) makes
+    every volume kernel's launch fail: K8 raises out of Plan.solve, whose
+    first step is the cost, and K6 and K7 raise from their wrappers."""
+    D = 70000
+    plan = _vol_plan("gaussNewtonGPU", (1, 1, D), 1, 2)
+    rng = np.random.RandomState(0)
+    shape = (D, 1, 1, 3)
+    inputs = {"Offset": rng.randn(*shape).astype(np.float32),
+              "Angle": np.zeros(shape, np.float32),
+              "UrShape": rng.randn(*shape).astype(np.float32),
+              "Constraints": rng.randn(*shape).astype(np.float32),
+              "w_fitSqrt": 1.0, "w_regSqrt": 1.0}
+    with pytest.raises(RuntimeError, match="vol_linearize: CUDA error"):
+        plan.solve(inputs, engine="stream3d")
+    assert plan.engine == "stream3d"
+    x, data = plan.bind(inputs)
+    op = plan._operator("stream3d", data)
+    v = torch.ones_like(x)
+    op._x = x
+    with pytest.raises(RuntimeError, match="vol_hat_apply: CUDA error"):
+        stream3d_cuda.vol_hat_apply(x, op.ur, op.cons, op.params, v, None, v)
+    zero = torch.zeros((), device=dev)
+    with pytest.raises(RuntimeError,
+                       match="vol_pipelined_sweep: CUDA error"):
+        stream3d_cuda.vol_pipelined_sweep(
+            x, op.ur, op.cons, op.params, v, None, v.clone(), v.clone(),
+            v.clone(), v.clone(), v.clone(), v.clone(), v.clone(), zero,
+            zero)
+    torch.cuda.synchronize()

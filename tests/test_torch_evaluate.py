@@ -37,7 +37,7 @@ def plans(energy_name, dims):
     js = opt_tpu.NewState()
     jplan = js.problem_plan(js.problem_define(
         getattr(jax_energies, energy_name), "gaussNewtonGPU"), dims)
-    ts = opt_tpu_torch.NewState()
+    ts = opt_tpu_torch.NewState(device="cpu")
     tplan = ts.problem_plan(ts.problem_define(
         getattr(energies, energy_name), "gaussNewtonGPU"), dims)
     return jplan, tplan
@@ -100,7 +100,7 @@ def _energy_with(op):
     (lambda O, X: O.log(X(0, 0)), "item 2"),
 ])
 def test_unported_ops_raise_not_implemented(op, item):
-    ts = opt_tpu_torch.NewState()
+    ts = opt_tpu_torch.NewState(device="cpu")
     plan = ts.problem_plan(ts.problem_define(_energy_with(op),
                                              "gaussNewtonGPU"), [4, 3])
     x, data = plan.bind({"X": np.ones((3, 4), np.float32)})
@@ -112,7 +112,7 @@ def test_unported_ops_raise_not_implemented(op, item):
                                   "optical_flow",
                                   "intrinsic_image_decomposition"])
 def test_unported_energies_raise_not_implemented(name):
-    ts = opt_tpu_torch.NewState()
+    ts = opt_tpu_torch.NewState(device="cpu")
     dims = [8, 6] if name != "arap_mesh_deformation" else [8, 12]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plan = ts.problem_plan(ts.problem_define(

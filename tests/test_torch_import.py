@@ -20,6 +20,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys, opt_tpu_torch\n"
         "import opt_tpu_torch.ops.warp_cuda, opt_tpu_torch.ops.build\n"
+        "import opt_tpu_torch.ops.stream_cuda, opt_tpu_torch.ops.vol_cuda\n"
+        "import opt_tpu_torch.ops.stream3d_cuda, chip_smoke\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'opt_tpu'))\n"
         "assert not bad, bad\n"
@@ -34,6 +36,8 @@ def test_import_loads_no_jax():
 def test_build_key_covers_every_source():
     srcs = [s.name for s in build.sources()]
     assert "warp_kernels.cu" in srcs and "pcg_update.cu" in srcs
+    assert "vol_kernels.cu" in srcs and "stream3d_kernels.cu" in srcs
+    assert "vol_energy.cuh" in [h.name for h in build.headers()]
     assert build._key() == build._key()
     assert "-gencode" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS

@@ -35,7 +35,7 @@ def make_plans(energy, kind, W, H, n, l, params=(), **state_kwargs):
     js = opt_tpu.NewState(**state_kwargs)
     jplan = js.problem_plan(js.problem_define(
         getattr(jax_energies, energy), kind), [W, H])
-    ts = opt_tpu_torch.NewState(**state_kwargs)
+    ts = opt_tpu_torch.NewState(device="cpu", **state_kwargs)
     tplan = ts.problem_plan(ts.problem_define(getattr(energies, energy),
                                               kind), [W, H])
     for plan in (jplan, tplan):

@@ -30,7 +30,7 @@ def jax_plan(W, H, n, l):
 
 
 def port_plan(W, H, n, l):
-    st = opt_tpu_torch.NewState()
+    st = opt_tpu_torch.NewState(device="cpu")
     plan = st.problem_plan(st.problem_define(energies.image_warping,
                                              "gaussNewtonGPU"), [W, H])
     plan.set_solver_parameter("nIterations", n)

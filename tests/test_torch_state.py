@@ -94,7 +94,7 @@ def test_port_warp_inputs_equal_bench(W, H):
     ({"use_materialized_jacobian": True}, "gaussNewtonGPU"),
 ])
 def test_unported_solver_modes_raise(kwargs, kind):
-    st = opt_tpu_torch.NewState(**kwargs)
+    st = opt_tpu_torch.NewState(device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         st.problem_plan(st.problem_define(energies.image_warping, kind),
                         [8, 6])
@@ -104,7 +104,7 @@ def test_bad_solver_settings_raise():
     for kwargs in ({"guarded_invert_type": "NOPE"},
                    {"jacobi_scaling": "SOMETIMES"},
                    {"pcg_variant": "fancy"}):
-        st = opt_tpu_torch.NewState(**kwargs)
+        st = opt_tpu_torch.NewState(device="cpu", **kwargs)
         with pytest.raises(ValueError, match="must be one of"):
             st.problem_plan(st.problem_define(energies.image_warping),
                             [8, 6])
@@ -116,7 +116,7 @@ def test_double_precision_and_phase_timing(capsys):
     inputs = warp_inputs(8, 6, seed=3)
     costs = {}
     for dp in (False, True):
-        st = opt_tpu_torch.NewState(double_precision=dp,
+        st = opt_tpu_torch.NewState(device="cpu", double_precision=dp,
                                     collect_kernel_timing=dp)
         plan = st.problem_plan(st.problem_define(energies.image_warping),
                                [8, 6])
@@ -134,3 +134,15 @@ def test_double_precision_and_phase_timing(capsys):
     assert costs[True] == pytest.approx(costs[False], rel=1e-4)
     out = capsys.readouterr().out
     assert "TIMING init=" in out and "step_0=" in out
+
+
+def test_new_state_defaults_to_the_card():
+    """NewState() asks for the card: it raises where torch sees no CUDA
+    device, and device="cpu" is how a caller (and every CPU test) asks for
+    the CPU."""
+    assert opt_tpu_torch.NewState(device="cpu").device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert opt_tpu_torch.NewState().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            opt_tpu_torch.NewState()

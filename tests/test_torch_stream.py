@@ -131,7 +131,8 @@ def test_auto_route_matches_jax(monkeypatch, kind):
     does).  The port's plans are made on the CPU and their device is then
     named cuda: the route reads only the plan."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    js, ts = opt_tpu.NewState(), opt_tpu_torch.NewState()
+    js = opt_tpu.NewState()
+    ts = opt_tpu_torch.NewState(device="cpu")
     for dims in ROUTE_SIZES:
         jplan = js.problem_plan(js.problem_define(
             jax_energies.image_warping, kind), list(dims))
@@ -151,10 +152,30 @@ def test_variant_choice():
     assert stream_cuda.pick_variant(False) == "pipelined"
     assert stream_cuda.pick_variant(True) == "classic"
     assert stream_cuda.pick_variant(False, "classic") == "classic"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stream_cuda.pick_variant(True, "pipelined")
+    # the pipelined kernel's LM mode: on request only, as in the JAX route
+    assert stream_cuda.pick_variant(True, "pipelined") == "pipelined"
     with pytest.raises(ValueError, match="variant"):
         stream_cuda.pick_variant(False, "fancy")
+
+
+def test_pipelined_lm_matches_stream_solver_hbm():
+    """LM on the pipelined backend (K5's LM mode: scs, the per-sweep q,
+    the zeta exit and the residual replacement at PCG iteration 5) against
+    StreamSolverHBM's pipelined kernel in LM mode, in interpret mode."""
+    inputs = _warp_inputs(W, H)
+    inputs["Mask"][7, 40] = 1.0
+    params = (("residual_reset_period", 5),)
+    jplan, tplan = make_plans("image_warping", "LMGPU", W, H, 2, 12, params)
+    solver = ssv.StreamSolverHBM(jplan, tile=8, variant="pipelined")
+    assert solver.variant == "pipelined"
+    out = solver.solve(inputs)
+    tplan.stream_variant = "pipelined"
+    cost = tplan.solve(inputs, engine="stream")
+    assert (tplan.engine, tplan.variant) == ("stream", "pipelined")
+    assert cost == pytest.approx(out["final_cost"], rel=1e-4)
+    for n, arr in tplan.unknowns().items():
+        np.testing.assert_allclose(arr, np.asarray(out["x"][n]), rtol=1e-3,
+                                   atol=1e-4, err_msg=n)
 
 
 class _FailingLibrary:

@@ -119,7 +119,7 @@ def test_supports_needs_the_energy_and_a_cuda_plan():
     import opt_tpu_torch
     from opt_tpu_torch import energies
 
-    st = opt_tpu_torch.NewState()
+    st = opt_tpu_torch.NewState(device="cpu")
     warp = st.problem_plan(st.problem_define(energies.image_warping), [8, 6])
     poisson = st.problem_plan(
         st.problem_define(energies.poisson_image_editing), [8, 6])
