@@ -5,15 +5,18 @@ like its index space: stencil reads are zero-padded shifted slices, so one
 residual is a handful of elementwise ops over the grid.  Derivatives come
 from torch.func (compile/plan_fns.py), never from symbolic rules.
 
-What this slice evaluates: the elementwise ops that the grid energies
-image_warping and poisson_image_editing use (arithmetic, comparisons,
-boolean ops, select, the trig/exp family, constant integer powers),
-InBounds and Index.  What it does not, and where that work is queued in
-ROADMAP.md queue A:
+What this package evaluates: the elementwise ops that the grid energies
+image_warping and poisson_image_editing and the graph energies arap,
+embedded and robust_nonrigid use (arithmetic, comparisons, boolean ops,
+select, the trig/exp family, constant integer powers), InBounds and Index
+on grids, and graph reads: a residual over a graph's edges reads a vertex
+array through a slot, one batched gather per slot and block of vertex
+arrays (EvalContext._slot_gather; K9 and K10 of ops/graph_cuda.py on the
+card).  What it does not, and where that work is queued in ROADMAP.md
+queue A:
   * the NaN-safe primitives safe_sqrt/div/log/pow -- they need forward and
     backward rules of their own (item 2);
   * SampledImage reads (items 2 and 7);
-  * graph gathers (item 8);
   * ComputedArray buffers (item 2).
 Each raises NotImplementedError naming its item.
 """
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dsl import expr as E
+from ..ops import graph_cuda
 
 
 def not_ported(what, item):
@@ -126,21 +130,69 @@ def _as_bool(v):
 class EvalContext:
     """Carries the runtime tensors an expression evaluates against.
 
-    shape: grid spatial shape
-    images: name -> (*spatial, C) tensor
+    domain: "grid" or "graph"
+    shape: grid spatial shape, or (E,) over a graph's edges
+    images: name -> (*spatial, C) tensor; a graph's vertex arrays are
+            (N, C)
     params: name -> 0-d tensor
+    graph_indices: graph name -> slot name -> (E,) int32 vertex index
+    graph_incidence: graph name -> slot name -> (order, rowptr), the
+                     slot's CSR incidence (ops/graph_cuda.incidence)
+    unknown_names: the unknowns' names (see _slot_gather)
     """
 
-    def __init__(self, shape, images, params, dtype, device):
+    def __init__(self, shape, images, params, dtype, device, domain="grid",
+                 graph_indices=None, graph_incidence=None,
+                 unknown_names=()):
+        self.domain = domain
         self.shape = tuple(shape)
         self.images = images
         self.params = params
+        self.graph_indices = graph_indices or {}
+        self.graph_incidence = graph_incidence or {}
+        self.unknown_names = frozenset(unknown_names)
         self.dtype = dtype
         self.device = device
         self.memo = {}
         # leaf key -> tensor: re-routes unknown reads through explicit leaf
         # inputs (the structural diag(J^T J), plan_fns.leaf_partials)
         self.leaf_overrides = None
+        # (graph, slot, n_verts) -> name -> (gathered rows, column offset)
+        self.slot_cache = {}
+
+    def _slot_gather(self, gname, slot, n_verts):
+        """name -> (the slot's gathered (E, C_block) rows, the name's column
+        offset) for every vertex array of one graph's vertex space.
+
+        The vertex arrays concatenate into two blocks, unknowns and
+        constants, gathered separately, one gather per slot and block; a
+        read of one (image, channel) is a column of its block.  Split so,
+        the constant block carries no tangent under torch.func and the
+        unknown block's transpose scatters only unknown channels
+        (opt_tpu/compile/evaluate.py:368-417, take mode)."""
+        key = (gname, slot, n_verts)
+        hit = self.slot_cache.get(key)
+        if hit is not None:
+            return hit
+        blocks = {}  # is_unknown -> (parts, name -> column offset)
+        for n in sorted(self.images):
+            arr = self.images[n]
+            if arr.ndim != 2 or arr.shape[0] != n_verts:
+                continue
+            parts, offsets = blocks.setdefault(n in self.unknown_names,
+                                               ([], {}))
+            offsets[n] = sum(p.shape[-1] for p in parts)
+            parts.append(arr)
+        idx = self.graph_indices[gname][slot]
+        order, rowptr = self.graph_incidence[gname][slot]
+        out = {}
+        for parts, offsets in blocks.values():
+            big = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
+            rows = graph_cuda.gather(big, idx, order, rowptr)
+            for n, off in offsets.items():
+                out[n] = (rows, off)
+        self.slot_cache[key] = out
+        return out
 
     def read_image(self, access: E.ImageAccess):
         if self.leaf_overrides is not None:
@@ -148,10 +200,12 @@ class EvalContext:
             if ov is not None:
                 return ov
         idx = access.index
-        if not isinstance(idx, E.Offset):
-            not_ported("graph gathers", 8)
-        chan = self.images[access.image.name][..., access.channel]
-        return shift_read(chan, idx.data)
+        img = self.images[access.image.name]
+        if isinstance(idx, E.Offset):
+            return shift_read(img[..., access.channel], idx.data)
+        rows, off = self._slot_gather(idx.graph.name, idx.slot,
+                                      img.shape[0])[access.image.name]
+        return rows[:, off + access.channel]
 
     def eval(self, e):
         # memo entries hold the expression object itself: id() keys are
@@ -174,8 +228,12 @@ class EvalContext:
         if isinstance(e, E.ParamValue):
             return self.params[e.param.name]
         if isinstance(e, E.BoundsAccess):
+            if self.domain != "grid":
+                raise ValueError("InBounds used in a graph residual")
             return bounds_mask(self.shape, e.mins, e.maxs, self.device)
         if isinstance(e, E.IndexValue):
+            if self.domain != "grid":
+                raise ValueError("Index used in a graph residual")
             return index_coords(self.shape, e.dim, e.shift_, self.dtype,
                                 self.device)
         if isinstance(e, E.SampledAccess):

@@ -1,5 +1,6 @@
 """ProblemFunctions: the torch callables a plan's solver runs on (port of
-opt_tpu/compile/plan_fns.py, centered term groups only).
+opt_tpu/compile/plan_fns.py: centered and graph term groups, take-mode
+graph reads).
 
   residual_fields(x, data) -> list of per-group residual fields (UNMASKED in
                               J -- the reference's J includes rows whose
@@ -11,10 +12,14 @@ opt_tpu/compile/plan_fns.py, centered term groups only).
   linearize / jtf          -> torch.func.linearize for J.p (traced once per
                               linearization point), torch.func.vjp for J^T.v
   diag_jtj(x, data)        -> structural gather of squared per-leaf partials
-                              (the Jacobi preconditioner, o.t:2894-2903)
+                              (the Jacobi preconditioner, o.t:2894-2903):
+                              the inverse shift on grids, one batched
+                              scatter per (graph, slot) on graphs (K10)
 
 Exclusion masks zero the unknown side of every operator (excluded unknowns
-never move: PCGLinearUpdate gate, solverGPUGaussNewton.t:855-862).
+never move: PCGLinearUpdate gate, solverGPUGaussNewton.t:855-862); graph
+residuals are never masked (graph kernels default to exclude=false,
+o.t:457-458).
 
 FuncsOperator binds these to one problem's data and is the plain engine's
 side of the solver seam (solver/core.py): cost(x), outer(x) -> (J^T F,
@@ -27,8 +32,10 @@ from __future__ import annotations
 import warnings
 
 import torch
-from torch.func import jvp as _jvp, linearize as _linearize, vjp as _vjp
+from torch.func import linearize as _linearize, vjp as _vjp
 
+from ..dsl import expr as E
+from ..ops import graph_cuda
 from ..ops.pcg_update import pcg_update_plain
 from . import evaluate as ev
 from .terms import classify_terms, classify_excludes
@@ -49,9 +56,6 @@ class ProblemFunctions:
         self.dtype = dtype
         self.device = torch.device(device)
         self.groups = classify_terms(spec)
-        for g in self.groups:
-            if g.kind != "centered":
-                ev.not_ported("graph energies", 8)
         self.excludes = classify_excludes(spec)  # ispace key -> exprs
         self.use_preconditioner = spec.use_preconditioner
         self.unknowns = spec.unknowns  # name -> Image handle
@@ -74,9 +78,22 @@ class ProblemFunctions:
         images.update(x)
         return images
 
-    def _ctx(self, shape, x, data):
-        return ev.EvalContext(shape, self._images(x, data), data["params"],
-                              self.dtype, self.device)
+    def _ctx(self, shape, x, data, domain="grid"):
+        return ev.EvalContext(
+            shape, self._images(x, data), data["params"], self.dtype,
+            self.device, domain=domain,
+            graph_indices=data.get("graph_indices"),
+            graph_incidence=data.get("graph_incidence"),
+            unknown_names=self.unknowns)
+
+    def _group_ctx(self, g, x, data):
+        """A context over a term group's domain: its grid, or the (E,)
+        edges of its graph."""
+        if g.kind == "centered":
+            return self._ctx(g.ispace.shape, x, data)
+        any_slot = next(iter(g.graph.slots))
+        shape = data["graph_indices"][g.graph.name][any_slot].shape
+        return self._ctx(shape, x, data, domain="graph")
 
     def exclude_mask(self, ispace_key, x, data):
         """Boolean 'excluded' mask over one index space, or None."""
@@ -121,9 +138,9 @@ class ProblemFunctions:
         """List over groups of (n_channels, *domain) stacked fields."""
         out = []
         for g in self.groups:
-            ctx = self._ctx(g.ispace.shape, x, data)
+            ctx = self._group_ctx(g, x, data)
             fields = [ev.eval_field(e, ctx) for e in g.exprs]
-            if masked:
+            if masked and g.kind == "centered":
                 m = self.exclude_mask(g.ispace.key(), x, data)
                 if m is not None:
                     zero = torch.zeros((), dtype=self.dtype,
@@ -147,7 +164,8 @@ class ProblemFunctions:
         total = torch.zeros((), dtype=self.dtype, device=self.device)
         for g, f0, fd in zip(self.groups, r0, jvp_fn(delta)):
             f = f0 + fd
-            m = self.exclude_mask(g.ispace.key(), x, data)
+            m = (self.exclude_mask(g.ispace.key(), x, data)
+                 if g.kind == "centered" else None)
             if m is not None:
                 f = torch.where(m, torch.zeros((), dtype=self.dtype,
                                                device=self.device), f)
@@ -173,48 +191,73 @@ class ProblemFunctions:
         """Per-group elementwise partial fields dr/da for every unknown leaf.
 
         Each group's residual fields depend on their unknown leaves
-        pointwise, so a one-hot-ones JVP yields the elementwise partial
-        field dr/da.  Yields (group, leaves, [D_a of shape
-        (n_channels, *domain)])."""
+        pointwise, so the gradient of one residual channel's sum with
+        respect to the leaves is, leaf by leaf, the elementwise partial
+        field: one backward pass per residual channel gives every leaf's
+        partial of that channel.  (The JAX package takes one forward-mode
+        JVP per leaf; torch's forward mode runs add and mul through its
+        Python reference decompositions, several times the cost of the
+        backward passes.)  Yields (group, leaves, [D_a of shape
+        (n_channels, *domain)]).  A graph group's leaves are read through
+        its slots' gathers, which the evaluation shares: under the
+        overrides only the constant block is read."""
         for g in self.groups:
             leaves = g.unknown_leaves
             if not leaves:
                 continue
-            keys = [a.key() for a in leaves]
-            read_ctx = self._ctx(g.ispace.shape, x, data)
-            leaf_vals = tuple(read_ctx.read_image(a) for a in leaves)
-
-            def gfun(vals, g=g, keys=keys):
-                ctx = self._ctx(g.ispace.shape, x, data)
-                ctx.leaf_overrides = dict(zip(keys, vals))
-                return torch.stack([ev.eval_field(e, ctx) for e in g.exprs])
-
-            # one jvp per leaf: eleven evaluations at image_warping's
-            # leaves cost less than tracing them once with linearize
-            D = []
-            for i in range(len(leaves)):
-                tangents = tuple(
-                    torch.ones_like(v) if j == i else torch.zeros_like(v)
-                    for j, v in enumerate(leaf_vals)
-                )
-                D.append(_jvp(gfun, (leaf_vals,), (tangents,))[1])
+            read_ctx = self._group_ctx(g, x, data)
+            vals = tuple(read_ctx.read_image(a).detach().requires_grad_()
+                         for a in leaves)
+            ctx = self._group_ctx(g, x, data)
+            ctx.slot_cache = read_ctx.slot_cache
+            ctx.leaf_overrides = {a.key(): v for a, v in zip(leaves, vals)}
+            with torch.enable_grad():
+                fields = [ev.eval_field(e, ctx) for e in g.exprs]
+                rows = []  # per channel: the partial of every leaf
+                for k, f in enumerate(fields):
+                    grads = (torch.autograd.grad(
+                        f, vals, torch.ones_like(f), retain_graph=True,
+                        allow_unused=True) if f.requires_grad
+                        else (None,) * len(vals))
+                    rows.append([torch.zeros_like(v) if d is None else d
+                                 for v, d in zip(vals, grads)])
+            D = [torch.stack([row[i] for row in rows]).detach()
+                 for i in range(len(leaves))]
             yield g, leaves, D
 
-    def diag_jtj(self, x, data):
+    def diag_jtj(self, x, data, partials=None):
         """Exact diag(J^T J): squared leaf partials gathered back onto the
-        unknowns by the inverse shift."""
+        unknowns, by the inverse shift on grids and by one scatter per
+        (graph, slot) on graphs, the squared partials of every leaf on the
+        slot stacked into one (E, K) block (opt_tpu plan_fns.py:503-540).
+        partials: leaf_partials(x, data) already materialized, or None."""
         acc = {
             n: [torch.zeros(s[:-1], dtype=self.dtype, device=self.device)
                 for _ in range(s[-1])]
             for n, s in self.unknown_shapes.items()
         }
-        for g, leaves, D in self.leaf_partials(x, data):
+        pending = {}  # (graph, slot) -> [(image name, channel, d2)]
+        if partials is None:
+            partials = self.leaf_partials(x, data)
+        for g, leaves, D in partials:
             for a, d in zip(leaves, D):
                 d2 = torch.sum(d * d, dim=0)
-                contrib = ev.scatter_shift(d2, a.index.data)
-                acc[a.image.name][a.channel] = (
-                    acc[a.image.name][a.channel] + contrib
-                )
+                if isinstance(a.index, E.Offset):
+                    contrib = ev.scatter_shift(d2, a.index.data)
+                    acc[a.image.name][a.channel] = (
+                        acc[a.image.name][a.channel] + contrib
+                    )
+                else:
+                    key = (a.index.graph.name, a.index.slot)
+                    pending.setdefault(key, []).append(
+                        (a.image.name, a.channel, d2))
+        for (gname, slot), items in pending.items():
+            stacked = torch.stack([d2 for _, _, d2 in items], dim=-1)
+            order, rowptr = data["graph_incidence"][gname][slot]
+            out = graph_cuda.graph_scatter(
+                stacked, data["graph_indices"][gname][slot], order, rowptr)
+            for k, (name, chan, _) in enumerate(items):
+                acc[name][chan] = acc[name][chan] + out[:, k]
         return {n: torch.stack(ch, dim=-1) for n, ch in acc.items()}
 
 

@@ -52,6 +52,10 @@ SIGNATURES = {
     "opt_vol_linearize": [_P] * 8 + [_I] * 4 + [_P],
     "opt_vol_hat_apply": [_P] * 12 + [_I] * 3 + [_P],
     "opt_vol_pipelined_sweep": [_P] * 19 + [_I] * 3 + [_P],
+    "opt_graph_gather": [_P] * 3 + [_I] * 3 + [_P],
+    "opt_graph_scatter": [_P] * 4 + [_I] * 3 + [_P],
+    "opt_graph_blocks": [_I],
+    "opt_graph_hat_apply": [_P] * 5 + [_I] + [_P] * 8 + [_I, _P],
 }
 
 _lib = None
@@ -164,9 +168,10 @@ def present(**tensors):
     return {k: v for k, v in tensors.items() if v is not None}
 
 
-def check_tensors(name, shapes, **tensors):
-    """Raise unless every tensor is a contiguous float32 CUDA tensor of the
-    shape given in ``shapes`` (name -> shape)."""
+def check_tensors(name, shapes, dtypes=None, **tensors):
+    """Raise unless every tensor is a contiguous CUDA tensor of the shape
+    given in ``shapes`` (name -> shape) and of the type given in ``dtypes``
+    (name -> dtype; float32 where not named)."""
     import torch
 
     device = next(iter(tensors.values())).device
@@ -175,8 +180,9 @@ def check_tensors(name, shapes, **tensors):
             raise ValueError(
                 f"{name}: {arg} is on {t.device}; every tensor must be on "
                 f"one cuda device ({device})")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name}: {arg} is {t.dtype}, not float32")
+        want_dtype = (dtypes or {}).get(arg, torch.float32)
+        if t.dtype != want_dtype:
+            raise ValueError(f"{name}: {arg} is {t.dtype}, not {want_dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         want = shapes.get(arg)

@@ -14,18 +14,25 @@ on the card ("cuda") and raises where torch sees none; NewState(device=
 "cpu") asks for the CPU, as the tests do.  Inputs arrive as numpy arrays
 (or tensors already on that device) and bind() puts them there.
 
-Four engines run the solver (solver/core.py) behind its operator seam:
+Five engines run the solver (solver/core.py) behind its operator seam:
 "torch", the plain engine for every supported energy
-(compile/plan_fns.FuncsOperator); "cuda", the hand-written whole-grid
-kernels for image_warping (ops/warp_cuda.WarpOperator); "stream",
-image_warping's inner PCG on the streamed hat-space kernels
-(ops/stream_cuda.StreamOperator), for large grids; and "stream3d", the
-volumetric ARAP energy's on its own hat-space kernels
-(ops/stream3d_cuda.Stream3DOperator).  engine="auto" picks a kernel engine
-exactly when warp_cuda.supports(plan) or vol_cuda.supports(plan) -- a
-decision on the energy, dtype and device, never a fallback after a
-failure -- and by size: stream_cuda.prefers_stream between "cuda" and
-"stream", stream3d_cuda.prefers_stream3d between "torch" and "stream3d".
+(compile/plan_fns.FuncsOperator; on the card its graph reads run K9 and
+K10); "cuda", the hand-written whole-grid kernels for image_warping
+(ops/warp_cuda.WarpOperator); "stream", image_warping's inner PCG on the
+streamed hat-space kernels (ops/stream_cuda.StreamOperator), for large
+grids; "stream3d", the volumetric ARAP energy's on its own hat-space
+kernels (ops/stream3d_cuda.Stream3DOperator); and "graph", a graph
+energy's inner PCG on K11 over its materialized partials
+(ops/graph_cuda.GraphOperator).  engine="auto" picks a kernel engine
+exactly when warp_cuda.supports(plan), vol_cuda.supports(plan) or
+graph_cuda.supports(plan) -- a decision on the energy, dtype and device,
+never a fallback after a failure -- and by size: stream_cuda.prefers_stream
+between "cuda" and "stream", stream3d_cuda.prefers_stream3d between
+"torch" and "stream3d".
+
+A graph's vertex indices arrive as {"G": {"v0": ..., "v1": ...}} or as
+"G.v0", "G.v1" keys; bind checks them and builds each slot's CSR incidence
+once on the host (cached on the plan by the indices' bytes).
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import torch
 from ..compile.plan_fns import FuncsOperator, ProblemFunctions
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
-from ..ops import stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
+from ..ops import graph_cuda, stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
 from ..solver.core import (
     SOLVER_PARAMETER_DEFAULTS,
     Layout,
@@ -47,7 +54,7 @@ from .timing import KernelTimer
 
 GN_KINDS = ("gaussNewtonGPU", "gauss_newton", "gaussNewton", "GN")
 LM_KINDS = ("LMGPU", "levenberg_marquardt", "levenbergMarquardt", "LM")
-ENGINES = ("torch", "cuda", "stream", "stream3d")
+ENGINES = ("torch", "cuda", "stream", "stream3d", "graph")
 
 
 class Problem:
@@ -192,6 +199,8 @@ class Plan:
         self._op = None
         self._cleaned = False
         self.timer = KernelTimer(enabled=state.collect_kernel_timing)
+        # (graph, slot, vertex count, index bytes) -> CSR incidence
+        self._incidence_cache = {}
 
     # -- parameters -----------------------------------------------------------
 
@@ -230,7 +239,8 @@ class Plan:
     def bind(self, inputs):
         """(x, data): the unknowns packed into one flat vector on the
         plan's device, and data = {"images": name -> (H, W, C) tensor,
-        "params": name -> 0-d tensor}."""
+        "params": name -> 0-d tensor, "graph_indices": graph -> slot ->
+        (E,) int32, "graph_incidence": graph -> slot -> (order, rowptr)}."""
         images = {}
         unknowns = {}
         for name, im in self.spec.images.items():
@@ -260,8 +270,49 @@ class Plan:
             params[name] = torch.tensor(float(inputs[name]),
                                         dtype=self.state.dtype,
                                         device=self.device)
-        return self.layout.pack(unknowns), {"images": images,
-                                            "params": params}
+        indices, incidence = self._bind_graphs(inputs)
+        return self.layout.pack(unknowns), {
+            "images": images, "params": params, "graph_indices": indices,
+            "graph_incidence": incidence}
+
+    def _bind_graphs(self, inputs):
+        """Each graph's slot indices on the device, checked as the JAX
+        package checks them (opt_tpu/runtime/api.py:454-483), and each
+        slot's CSR incidence (graph_cuda.incidence), built once per index
+        array."""
+        indices, incidence = {}, {}
+        for gname, g in self.spec.graphs.items():
+            gin = inputs.get(gname)
+            slots = {}
+            for sname, slot in g.slots.items():
+                if gin is not None and sname in gin:
+                    v = gin[sname]
+                elif f"{gname}.{sname}" in inputs:
+                    v = inputs[f"{gname}.{sname}"]
+                else:
+                    raise KeyError(f"missing graph indices {gname}.{sname}")
+                if isinstance(v, torch.Tensor):
+                    v = v.cpu()
+                vnp = np.asarray(v)
+                n_verts = slot.ispace.shape[0]
+                if vnp.size and (vnp.min() < 0 or vnp.max() >= n_verts):
+                    raise ValueError(
+                        f"graph {gname}.{sname}: vertex index out of range "
+                        f"[0, {n_verts}): min={vnp.min()}, max={vnp.max()}")
+                slots[sname] = (vnp.astype(np.int32).reshape(-1), n_verts)
+            if len({a.shape for a, _ in slots.values()}) != 1:
+                raise ValueError(f"graph {gname}: slot length mismatch")
+            indices[gname], incidence[gname] = {}, {}
+            for sname, (a, n_verts) in slots.items():
+                key = (gname, sname, n_verts, a.tobytes())
+                csr = self._incidence_cache.get(key)
+                if csr is None:
+                    csr = self._incidence_cache[key] = graph_cuda.incidence(
+                        a, n_verts)
+                indices[gname][sname] = torch.as_tensor(a).to(self.device)
+                incidence[gname][sname] = tuple(
+                    torch.as_tensor(c).to(self.device) for c in csr)
+        return indices, incidence
 
     # -- engines -----------------------------------------------------------------
 
@@ -270,11 +321,13 @@ class Plan:
         f32 grids (opt_tpu/runtime/api.py:719-768): when the hand-written
         kernels hold this plan on a CUDA device, image_warping goes to
         "stream" for large grids (stream_cuda.prefers_stream: GN from
-        2048^2 pixels, LM above 512^2) and "cuda" below, and volumetric
-        ARAP to "stream3d" from 64^3 voxels (stream3d_cuda.
-        prefers_stream3d); everything else to "torch".  An explicit kernel
-        engine needs only the energy to match; on CPU tensors its kernel
-        wrappers run their plain versions."""
+        2048^2 pixels, LM above 512^2) and "cuda" below, volumetric ARAP
+        to "stream3d" from 64^3 voxels (stream3d_cuda.prefers_stream3d),
+        and a graph energy that K11 holds (graph_cuda.supports) to
+        "graph"; everything else to "torch".  (The JAX package sends
+        graphs to its XLA program; its graph kernel is opt-in.)  An
+        explicit kernel engine needs only the energy to match; on CPU
+        tensors its kernel wrappers run their plain versions."""
         if engine == "auto":
             if warp_cuda.supports(self):
                 return ("stream" if stream_cuda.prefers_stream(self)
@@ -282,10 +335,17 @@ class Plan:
             if (vol_cuda.supports(self)
                     and stream3d_cuda.prefers_stream3d(self)):
                 return "stream3d"
+            if graph_cuda.supports(self):
+                return "graph"
             return "torch"
         if engine not in ENGINES:
             raise ValueError(f"engine must be auto or one of {ENGINES}: "
                              f"{engine!r}")
+        if engine == "graph" and not graph_cuda.supports_plan(self):
+            raise ValueError(
+                "engine='graph' holds f32 graph energies whose images share "
+                "one vertex space, with no Exclude and pointwise vertex "
+                "terms (ops/graph_cuda.plan_meta)")
         if engine == "stream3d" and not vol_cuda.supports_energy(self):
             raise ValueError(
                 "engine='stream3d' holds only "
@@ -305,6 +365,10 @@ class Plan:
         if engine == "stream3d":
             return stream3d_cuda.Stream3DOperator(
                 data, self.config.uses_lambda, self.stream_variant)
+        if engine == "graph":
+            return graph_cuda.GraphOperator(
+                self.funcs, data, self.layout, self.config.uses_lambda,
+                graph_cuda.plan_meta(self))
         return FuncsOperator(self.funcs, data, self.layout)
 
     def _bind_engine(self, engine, inputs):
@@ -365,8 +429,8 @@ class Plan:
         """Opt_ProblemSolve: init and the whole outer loop with no host
         synchronization inside; returns the final cost.
 
-        engine: "auto" (see _pick_engine), "torch", "cuda", "stream" or
-        "stream3d".
+        engine: "auto" (see _pick_engine), "torch", "cuda", "stream",
+        "stream3d" or "graph".
         A kernel error propagates: there is no fallback to another
         engine."""
         x = self._bind_engine(engine, inputs)

@@ -12,7 +12,8 @@ import torch
 
 import chip_smoke
 from opt_tpu_torch.ops import pcg_update as k2
-from opt_tpu_torch.ops import stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
+from opt_tpu_torch.ops import graph_cuda, stream3d_cuda, stream_cuda
+from opt_tpu_torch.ops import vol_cuda, warp_cuda
 
 pytestmark = pytest.mark.cuda
 
@@ -333,4 +334,119 @@ def test_stream3d_launch_failure_raises_with_no_fallback(dev):
             x, op.ur, op.cons, op.params, v, None, v.clone(), v.clone(),
             v.clone(), v.clone(), v.clone(), v.clone(), v.clone(), zero,
             zero)
+    torch.cuda.synchronize()
+
+
+# the slice-4 kernels: meshes whose vertex and edge counts leave ragged
+# blocks (19 x 19 = 361 vertices, 37 x 23 = 851)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graph_gather_and_scatter_match_plain(dev, dtype):
+    v0, v1 = chip_smoke.tri_grid_graph(37, 23)
+    n = 37 * 23
+    rng = np.random.RandomState(8)
+    v = torch.as_tensor(rng.randn(n, 5), device=dev).to(dtype)
+    x = torch.as_tensor(rng.randn(len(v0), 5), device=dev).to(dtype)
+    idx = torch.as_tensor(np.stack([v0, v1]), device=dev)
+    k9 = graph_cuda.graph_gather.launches
+    k10 = graph_cuda.graph_scatter.launches
+    got = graph_cuda.graph_gather(v, idx)
+    assert got.shape == (2, len(v0), 5) and got.dtype == dtype
+    # a gather moves values: exact
+    assert torch.equal(got, graph_cuda.graph_gather_plain(v, idx))
+    order, rowptr = (torch.as_tensor(a, device=dev)
+                     for a in graph_cuda.incidence(v1, n))
+    out = graph_cuda.graph_scatter(x, idx[1], order, rowptr)
+    _close([out], [graph_cuda.graph_scatter_plain(x, idx[1], n)])
+    assert torch.equal(out, graph_cuda.graph_scatter(x, idx[1], order, rowptr))
+    assert graph_cuda.graph_gather.launches == k9 + 1
+    assert graph_cuda.graph_scatter.launches == k10 + 2
+
+
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("lm", [False, True])
+def test_graph_hat_apply_kernel_matches_plain(dev, lm, prev):
+    tab, _, t = chip_smoke.graph_kernel_operands(torch, 19, dev, seed=9)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    args = (tab, t["sq"], t["scs"] if lm else None, t["r"])
+    extra = (t["p"], beta) if prev else ()
+    n = graph_cuda.graph_hat_apply.launches
+    got = graph_cuda.graph_hat_apply(*args, *extra)
+    assert graph_cuda.graph_hat_apply.launches == n + 1
+    assert (got[0] is t["r"]) == (not prev)
+    _close(got, graph_cuda.graph_hat_apply_plain(*args, *extra))
+
+
+def _arap_plan(kind, w, device="cuda", n_outer=3, n_linear=30, **state):
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+
+    st = opt_tpu_torch.NewState(device=device, **state)
+    plan = st.problem_plan(
+        st.problem_define(energies.arap_mesh_deformation, kind),
+        [w * w, len(chip_smoke.tri_grid_graph(w, w)[0])])
+    plan.set_solver_parameter("nIterations", n_outer)
+    plan.set_solver_parameter("lIterations", n_linear)
+    return plan
+
+
+@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
+def test_graph_engine_agrees_and_repeats_on_the_card(dev, kind):
+    """engine="auto" picks "graph"; its solves repeat bit for bit (no
+    atomics in K9-K11), and agree with the plain engine on the card (K9
+    and K10 inside its traced J p) and with the graph engine on the CPU."""
+    inputs = chip_smoke.arap_inputs(19, seed=3)
+    plan = _arap_plan(kind, 19)
+    cost = plan.solve(inputs)
+    assert plan.engine == "graph"
+    assert np.isfinite(cost)
+    assert plan.solve(inputs) == cost
+    assert plan.solve(inputs, engine="torch") == pytest.approx(cost, rel=1e-4)
+    cpu = _arap_plan(kind, 19, device="cpu").solve(inputs, engine="graph")
+    assert cost == pytest.approx(cpu, rel=1e-4)
+
+
+def test_traced_jp_runs_the_gathers(dev):
+    """torch.func.linearize traces J p with make_fx and replays the trace:
+    K9 and K10 are custom ops, so the replay launches them on each new
+    tangent rather than returning the buffers of the trace.  Two tangents,
+    held against the CPU's linearized J p and J^T, in f32 and f64."""
+    for dp in (False, True):
+        inputs = chip_smoke.arap_inputs(19, seed=4)
+        inputs["Angle"] = (0.2 * np.random.RandomState(5).randn(361, 3))
+        got = {}
+        for device in ("cuda", "cpu"):
+            plan = _arap_plan("gaussNewtonGPU", 19, device,
+                              double_precision=dp)
+            x, data = plan.bind(inputs)
+            r0, jvp, jt = plan.funcs.linearize(plan.layout.views(x), data)
+            rng = np.random.RandomState(6)
+            outs = []
+            for _ in range(2):
+                p = torch.as_tensor(rng.randn(x.numel()), device=device).to(
+                    x.dtype)
+                jp = jvp(plan.layout.views(p))
+                outs.append([f.cpu() for f in jp])
+                outs.append([v.cpu() for v in jt(jp).values()])
+            got[device] = outs
+        for a, b in zip(got["cuda"], got["cpu"]):
+            _close(a, b)
+        assert not torch.equal(got["cuda"][0][1], got["cuda"][2][1])
+
+
+def test_graph_launch_failure_raises_through_solve(dev, monkeypatch):
+    """K11 refusing its launch (here: a table longer than the kernel's
+    shared copy, which the C entry rejects with cudaErrorInvalidValue)
+    raises out of Plan.solve: no engine catches it and carries on."""
+    set_partials = graph_cuda.HatTables.set_partials
+
+    def too_long(self, D_groups):
+        set_partials(self, D_groups)
+        self.meta = torch.cat([self.meta, torch.zeros(
+            graph_cuda.META_MAX, dtype=torch.int32, device=self.meta.device)])
+
+    monkeypatch.setattr(graph_cuda.HatTables, "set_partials", too_long)
+    plan = _arap_plan("gaussNewtonGPU", 19, n_outer=1, n_linear=2)
+    with pytest.raises(RuntimeError, match="graph_hat_apply: CUDA error"):
+        plan.solve(chip_smoke.arap_inputs(19))
+    assert plan.engine == "graph"
     torch.cuda.synchronize()

@@ -108,12 +108,12 @@ def test_unported_ops_raise_not_implemented(op, item):
         plan.funcs.residual_fields(plan.layout.views(x), data, masked=False)
 
 
-@pytest.mark.parametrize("name", ["arap_mesh_deformation",
+@pytest.mark.parametrize("name", ["cotangent_mesh_smoothing",
                                   "optical_flow",
                                   "intrinsic_image_decomposition"])
 def test_unported_energies_raise_not_implemented(name):
     ts = opt_tpu_torch.NewState(device="cpu")
-    dims = [8, 6] if name != "arap_mesh_deformation" else [8, 12]
+    dims = [8, 6] if name != "cotangent_mesh_smoothing" else [8, 12]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plan = ts.problem_plan(ts.problem_define(
             getattr(energies, name), "gaussNewtonGPU"), dims)
@@ -124,5 +124,8 @@ def _zeros(plan):
     inputs = {n: np.zeros(im.ispace.shape + (im.channels,), np.float32)
               for n, im in plan.spec.images.items()}
     inputs.update({n: 1.0 for n in plan.spec.params})
+    for gname, g in plan.spec.graphs.items():
+        for sname in g.slots:
+            inputs[f"{gname}.{sname}"] = np.zeros(plan.dims[1], np.int32)
     x, data = plan.bind(inputs)
     return plan.layout.views(x), data

@@ -22,6 +22,9 @@ def test_import_loads_no_jax():
         "import opt_tpu_torch.ops.warp_cuda, opt_tpu_torch.ops.build\n"
         "import opt_tpu_torch.ops.stream_cuda, opt_tpu_torch.ops.vol_cuda\n"
         "import opt_tpu_torch.ops.stream3d_cuda, chip_smoke\n"
+        "import opt_tpu_torch.ops.graph_cuda\n"
+        "import opt_tpu_torch.compile.evaluate\n"
+        "import opt_tpu_torch.compile.plan_fns\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'opt_tpu'))\n"
         "assert not bad, bad\n"
@@ -38,6 +41,7 @@ def test_build_key_covers_every_source():
     assert "warp_kernels.cu" in srcs and "pcg_update.cu" in srcs
     assert "vol_kernels.cu" in srcs and "stream3d_kernels.cu" in srcs
     assert "vol_energy.cuh" in [h.name for h in build.headers()]
+    assert "graph_kernels.cu" in srcs
     assert build._key() == build._key()
     assert "-gencode" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
@@ -62,3 +66,20 @@ def test_cuda_device_without_card_raises():
         pytest.skip("this machine has a CUDA device")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         opt_tpu_torch.NewState(device="cuda")
+
+
+def test_graph_kernels_are_bound_and_registered():
+    """K9-K11's C entry points have ctypes signatures, and K9 and K10 are
+    torch custom ops (so torch.func.linearize's trace records them)."""
+    import torch
+
+    from opt_tpu_torch.ops import graph_cuda
+
+    for name in ("opt_graph_gather", "opt_graph_scatter",
+                 "opt_graph_blocks", "opt_graph_hat_apply"):
+        assert name in build.SIGNATURES
+    assert hasattr(torch.ops.opt_tpu_torch, "graph_gather")
+    assert hasattr(torch.ops.opt_tpu_torch, "graph_scatter")
+    for k in (graph_cuda.graph_gather, graph_cuda.graph_scatter,
+              graph_cuda.graph_hat_apply):
+        assert k.launches >= 0
