@@ -66,7 +66,25 @@ Phases (any failure raises and the exit code is non-zero):
      then the 10k GN on engine="torch" (K9 and K10 inside the evaluator's
      gathers), and bench.aux_arap's own inputs, whose optimum is a rigid
      motion, on "auto" (final cost below 1e-6);
- 13. print {"kernels": [...]} (K1-K11: launches over the paths, agreement,
+ 13. hold the slice-5 kernels against their plain versions, at a ragged
+     37x23 with excluded pixels and at the paths' sizes, agreement after
+     RESIDENT_CHECK_ITERS iterations (a plain loop of the paths' full
+     length would cost too much), times at the paths' iteration counts:
+     K12 poisson_cg (C = 1 and C = 4 with an all-zero channel), K13
+     resident_pcg (the image_warping and the poisson hat applies), K14
+     stencil_apply (the JAX test's shapes and taps, radius 2, 4096x4096,
+     with torch.nn.functional.conv2d timed beside it, TF32 off);
+ 14. run the slice-5 paths, each with its own launch counts, its final
+     cost against the JAX package's CPU value and its warm solve (best of
+     3):
+       poisson 512x512, 400 CG iterations  -> PoissonCudaSolver (1 K12),
+       poisson 2048x2048, 100 iterations   -> PoissonCudaSolver (1 K12),
+       image_warping 512x512 GN 8x400      -> StreamSolver (8 K13, K3),
+                                              beside the cuda engine,
+       poisson 512x512 GN 8x100            -> StreamSolver (8 K13),
+       a 4096x4096 stencil                 -> stencil_apply (1 K14);
+     and profile the 2048x2048 poisson CG and the warp StreamSolver solve;
+ 15. print {"kernels": [...]} (K1-K14: launches over the paths, agreement,
      times, and the bound: the least time the card could take for each
      kernel's bytes and operations) and, last, {"ok": true, "device":
      {...}}.
@@ -187,7 +205,60 @@ OPS = {"warp_jtj_apply": 280, "warp_linearize": 300,
        "warp_linearize(cost)": 100, "warp_hat_apply": 300,
        "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 1600,
        "vol_pipelined_sweep": 1650, "vol_linearize": 1450,
-       "vol_linearize(cost)": 300, "vol_linearize(model_cost)": 600}
+       "vol_linearize(cost)": 300, "vol_linearize(model_cost)": 600,
+       # per element (K12, K13 poisson) or pixel (K13 warp) an iteration:
+       # the apply, the two dots and the three vector updates
+       "poisson_cg": 28, "resident_pcg(poisson)": 28,
+       "resident_pcg(warp)": 330}
+# The slice-5 paths, on poisson_inputs (a copy of
+# tests/test_stream_solver._poisson_inputs; a test holds the two equal).
+# PoissonCudaSolver: (label, size, CG iterations, the JAX package's
+# PoissonPallasSolver final cost in interpret mode on a CPU, float32;
+# its float64 values, 275.2935260754403 and 1114.6071093992073, lie
+# 1.9e-5 and 2.0e-5 away).  Each is
+#   python -c "import jax; jax.config.update('jax_platforms', 'cpu'); \
+#     import opt_tpu, chip_smoke; from opt_tpu import energies; \
+#     from opt_tpu.ops.poisson_pallas import PoissonPallasSolver; \
+#     s = opt_tpu.NewState(); p = s.problem_plan(s.problem_define( \
+#     energies.poisson_image_editing, 'gaussNewtonGPU'), [512, 512]); \
+#     print(repr(PoissonPallasSolver(p).solve( \
+#     chip_smoke.poisson_inputs(512, 512), n_iters=400)['final_cost']))"
+# with 2048 and 100 for the large grid; they took 6 s and 17 s.
+POISSON_CG_PATHS = (
+    ("poisson 512 CG", 512, 400, 275.2882385253906),
+    ("poisson 2048 CG", 2048, 100, 1114.584716796875),
+)
+# StreamSolver: (label, energy, size, outer, PCG iterations, the JAX
+# package's final cost).  image_warping's is JAX_CPU_FINAL_COST; poisson's
+# is its float64 plan.solve(engine='xla') at 8x100 (33 s on a CPU; the
+# float32 one ends at 275.288330078125, 1.9e-5 away).
+RESIDENT_PATHS = (
+    ("warp 512 GN resident", "image_warping", W, N_OUTER, N_LINEAR,
+     JAX_CPU_FINAL_COST),
+    ("poisson 512 GN resident", "poisson_image_editing", W, 8, 100,
+     275.29355245957834),
+)
+# the slice-5 kernel checks: a ragged (W, H) with excluded pixels, and
+# the iterations after which K12 and K13 are held against their plain
+# loops (past where a stale neighbour read across a grid sync shows)
+SMALL_POISSON = (37, 23)
+RESIDENT_CHECK_ITERS = 50
+# K14's taps: tests/test_halo_stencil.py's, and a radius-2 set
+STENCIL_TAPS = {
+    "radius1": (((1, 0), (-1, 0), (0, 1), (0, -1), (0, 0)),
+                (1.0, 2.0, -1.0, 0.5, 4.0)),
+    "radius2": (((2, 0), (-2, 1), (0, 2), (1, -2), (0, 0), (-1, -1)),
+                (0.25, -1.5, 3.0, 0.75, -2.0, 1.25)),
+}
+STENCIL_SHAPES = ((64, 128), (100, 200), (33, 450))
+BIG_STENCIL = 4096
+# the port's kernels as the profiler names them
+KERNEL_SYMBOLS = (
+    "warp_jtj_apply_kernel", "warp_linearize_kernel", "pcg_update_kernel",
+    "warp_hat_apply_kernel", "warp_pipelined_sweep_kernel",
+    "vol_hat_apply_kernel", "vol_pipelined_sweep_kernel",
+    "vol_linearize_kernel", "graph_gather_kernel", "graph_scatter_kernel",
+    "graph_hat_apply_kernel", "pcg_kernel<", "stencil_kernel")
 
 
 def warp_inputs(W, H, seed=0):
@@ -327,9 +398,9 @@ def rel_err(got, want):
     return rel, absmax
 
 
-def cuda_ms(torch, fn, reps=TIMING_REPS):
+def cuda_ms(torch, fn, reps=TIMING_REPS, warmup=3):
     """Mean device milliseconds per call of fn, from CUDA events."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
@@ -683,16 +754,23 @@ def check_graph_kernels(torch, dev, w, reps):
 
 
 def profile_solve(torch, plan, inputs, engine, label, card, wall_ms):
-    """Where a warm solve spends the card's time: device time by kernel
-    from torch.profiler, and the device's busy share of the unprofiled
-    solve's wall time (wall_ms; the profiler slows the host)."""
+    """profile_call on one plan.solve."""
+    profile_call(torch, lambda: plan.solve(inputs, engine=engine),
+                 f"{label} engine={engine}", card, wall_ms)
+
+
+def profile_call(torch, fn, label, card, wall_ms):
+    """Where a warm solve (fn) spends the card's time: device time by
+    kernel from torch.profiler (the top rows, then every other row of the
+    port's kernels), and the device's busy share of the unprofiled solve's
+    wall time (wall_ms; the profiler slows the host)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        plan.solve(inputs, engine=engine)
+        fn()
     # device-side rows only: the aten op rows repeat their kernels' time
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages()
@@ -702,26 +780,38 @@ def profile_solve(torch, plan, inputs, engine, label, card, wall_ms):
         print("profile: the profiler saw no device time (not measured)")
         return
     busy_ms = sum(r[2] for r in rows) / 1e3
-    print(f"profile: {label} engine={engine}: device busy {busy_ms:.1f} ms of "
+    print(f"profile: {label}: device busy {busy_ms:.1f} ms of "
           f"{wall_ms:.1f} ms wall ({100 * busy_ms / wall_ms:.1f}% busy, "
           f"{100 * (1 - busy_ms / wall_ms):.1f}% idle) ({card})")
-    for key, count, us in sorted(rows, key=lambda r: -r[2])[:12]:
-        print(f"  {us / 1e3:9.2f} ms {count:6d} x {us / count:8.2f} us  "
-              f"{key[:90]}")
+    rows.sort(key=lambda r: -r[2])
+    for n, (key, count, us) in enumerate(rows):
+        if n < 12 or any(k in key for k in KERNEL_SYMBOLS):
+            print(f"  {us / 1e3:9.2f} ms {count:6d} x {us / count:8.2f} us  "
+                  f"{key[:90]}")
+
+
+def timed_call(torch, fn):
+    """(fn's result, wall ms) of one call that ends in a host read (a
+    solve's final cost)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def timed_solve(torch, plan, inputs, engine="auto"):
-    """(final cost, wall ms) of one solve, ending in the host read of the
-    cost."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cost = plan.solve(inputs, engine=engine)
-    return cost, (time.perf_counter() - t0) * 1e3
+    """(final cost, wall ms) of one solve."""
+    return timed_call(torch, lambda: plan.solve(inputs, engine=engine))
 
 
 def best_of_3(torch, plan, inputs, engine, label, card):
-    times = [timed_solve(torch, plan, inputs, engine)[1] for _ in range(3)]
-    print(f"solve {label} engine={engine}: best {min(times):.1f} ms of "
+    return best_of_3_call(torch, lambda: plan.solve(inputs, engine=engine),
+                          f"{label} engine={engine}", card)
+
+
+def best_of_3_call(torch, fn, label, card):
+    times = [timed_call(torch, fn)[1] for _ in range(3)]
+    print(f"solve {label}: best {min(times):.1f} ms of "
           f"{[round(v, 1) for v in times]} ({card})")
     return min(times)
 
@@ -866,6 +956,252 @@ def check_launches(label, launches, want):
                              f"{want} and no others")
 
 
+def poisson_inputs(W, H, seed=1):
+    """The slice-5 poisson paths' inputs: a copy of
+    tests/test_stream_solver._poisson_inputs (a test holds the two equal).
+    The frame is excluded (M != 0) and the central box free."""
+    rng = np.random.RandomState(seed)
+    mask = np.ones((H, W, 1), np.float32)
+    mask[H // 4: -H // 4, W // 4: -W // 4] = 0
+    return {
+        "X": rng.rand(H, W, 4).astype(np.float32),
+        "T": rng.rand(H, W, 4).astype(np.float32),
+        "M": mask,
+    }
+
+
+def new_poisson_plan(opt_tpu_torch, energies, size, n_outer, n_linear):
+    state = opt_tpu_torch.NewState(device=DEVICE)
+    plan = state.problem_plan(state.problem_define(
+        energies.poisson_image_editing, "gaussNewtonGPU"), [size, size])
+    plan.set_solver_parameter("nIterations", n_outer)
+    plan.set_solver_parameter("lIterations", n_linear)
+    return plan
+
+
+def resident_operands(torch, energy, W, H, dev, seed=12):
+    """(hat, sq, b_hat) for K13, as the GN solver forms them: image_warping
+    at kernel_operands' point, sq = sqrt(guarded_invert(diag)) (0 at its
+    excluded pixel) and b_hat = sq (-J^T F), from the closed-form
+    linearize; or poisson on a flat (H, W, 4) vector with sq = 0 on an
+    excluded frame and one inner pixel and 1 elsewhere (no
+    preconditioner), b_hat = sq times seeded noise.  (Random sq and b_hat
+    make image_warping's hat system so ill-conditioned that float32 loops
+    part from float64 by 2e-2 after 20 iterations; the solver's Jacobi
+    scaling keeps that to 2e-6 at 50.)"""
+    from opt_tpu_torch.ops import stream_cuda, warp_cuda
+    from opt_tpu_torch.solver.core import guarded_invert
+
+    rng = np.random.RandomState(seed)
+    if energy == "warp":
+        x, ur, cons, mask, params, _ = kernel_operands(torch, W, H, dev, seed)
+        jtf, diag, _ = warp_cuda.warp_linearize_plain(x, ur, cons, mask,
+                                                      params)
+        keep = warp_cuda._flat_keep(mask.view(H, W) == 0)
+        sq = torch.where(keep, torch.sqrt(guarded_invert(diag, "CERES")),
+                         torch.zeros((), device=dev))
+        return (stream_cuda.WarpHat(x, ur, cons, mask, params), sq,
+                sq * -jtf)
+    keep = np.zeros((H, W, 1), np.float32)
+    keep[3:-3, 4:-4] = 1.0
+    keep[H // 2, W // 3] = 0.0
+    sq = torch.as_tensor(np.repeat(keep, 4, axis=-1).reshape(-1), device=dev)
+    b = torch.as_tensor(rng.randn(H * W * 4).astype(np.float32), device=dev)
+    return stream_cuda.PoissonHat(H, W, 4), sq, sq * b
+
+
+def check_loop_cases(torch, cases, reps):
+    """Each whole-loop case (kernel(n), plain(n), iterations to time,
+    bytes in and out, operations at those iterations, bytes the kernel
+    moves an iteration): agreement within KERNEL_RTOL after
+    RESIDENT_CHECK_ITERS iterations, then both timed at the given
+    iterations (the plain loop with one timed call), and the bound."""
+    out = {}
+    for name, (kern, plain, n_time, n_bytes, n_ops, moved) in cases.items():
+        n = RESIDENT_CHECK_ITERS
+        got, want = kern(n), plain(n)
+        torch.cuda.synchronize()
+        rel, absmax = rel_err([got], [want])
+        ok = rel <= KERNEL_RTOL and bool(torch.isfinite(got).all())
+        ms = cuda_ms(torch, lambda: kern(n_time), reps)
+        plain_ms = cuda_ms(torch, lambda: plain(n_time), 1, warmup=1)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
+        print(f"kernel {name}: max rel err {rel:.3e} after {n} iterations "
+              f"(tol {KERNEL_RTOL:.0e}) max abs err {absmax:.3e}  "
+              f"{n_time} iterations {ms * 1e3:.1f} us vs plain "
+              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by}, {n_bytes / 1e6:.1f} MB in and out); moves about "
+              f"{moved / 1e6:.1f} MB an iteration, "
+              f"{moved * n_time / (ms * 1e9):.2f} TB/s  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        out[name] = {"max_abs_err": absmax, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by}
+    return out
+
+
+def check_slice5_kernels(torch, dev, reps):
+    """Phase 13: K12-K14 against their plain versions; name -> timings,
+    with library_ms (conv2d) for K14."""
+    import torch.nn.functional as F
+
+    from opt_tpu_torch.ops import halo_stencil, poisson_cuda, stream_cuda
+
+    cases = {}
+    # the ragged size is timed at the checks' iterations: no row reads it
+    for size, n_time in ((SMALL_POISSON, RESIDENT_CHECK_ITERS), ((W, H), 400),
+                         ((BIG, BIG), 100)):
+        Ws, Hs = size
+        keep_np = poisson_inputs(Ws, Hs)["M"][..., 0] == 0
+        keep_np[Hs // 2, Ws // 3] = False
+        keep = torch.as_tensor(keep_np.astype(np.float32), device=dev)
+        rng = np.random.RandomState(Ws)
+        for C in (1, 4):
+            b = torch.as_tensor(rng.randn(C, Hs, Ws).astype(np.float32),
+                                device=dev)
+            if C == 4:
+                b[2] = 0.0
+            cases[f"poisson_cg(C={C}, {Ws}x{Hs})"] = (
+                lambda n, b=b, keep=keep: poisson_cuda.poisson_cg(b, keep, n),
+                lambda n, b=b, keep=keep: poisson_cuda.poisson_cg_plain(
+                    b, keep, n),
+                n_time, nbytes(b, keep, b),
+                OPS["poisson_cg"] * b.numel() * n_time,
+                11 * nbytes(b) + nbytes(keep))
+    for size in (SMALL_POISSON, (W, H)):
+        # the StreamSolver paths' PCG iterations
+        for energy, n_path in (("warp", N_LINEAR), ("poisson", 100)):
+            n_time = n_path if size == (W, H) else RESIDENT_CHECK_ITERS
+            hat, sq, b_hat = resident_operands(torch, energy, *size, dev)
+            px = size[0] * size[1]
+            ops = (OPS["resident_pcg(warp)"] * px if energy == "warp"
+                   else OPS["resident_pcg(poisson)"] * b_hat.numel())
+            cases[f"resident_pcg({energy}, {size[0]}x{size[1]})"] = (
+                lambda n, h=hat, s=sq, b=b_hat: stream_cuda.resident_pcg(
+                    h, s, b, n),
+                lambda n, h=hat, s=sq, b=b_hat:
+                    stream_cuda.resident_pcg_plain(h, s, b, n),
+                n_time, nbytes(*hat.operands.values(), sq, b_hat, b_hat),
+                ops * n_time,
+                11 * nbytes(b_hat) + nbytes(sq, *hat.operands.values()))
+    print("slice-5 whole-loop kernels:")
+    out = check_loop_cases(torch, cases, reps)
+    stencil = {}
+    library = {}
+    # cuDNN runs a float32 convolution in TF32 by default: the yardstick
+    # is held to full float32, as the kernel computes
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(13)
+    for shape in STENCIL_SHAPES + ((BIG_STENCIL, BIG_STENCIL),):
+        img = torch.as_tensor(rng.randn(*shape).astype(np.float32),
+                              device=dev)
+        for tag, (offsets, weights) in STENCIL_TAPS.items():
+            name = f"stencil_apply({tag}, {shape[0]}x{shape[1]})"
+            stencil[name] = (
+                lambda i=img, o=offsets, w=weights:
+                    [halo_stencil.stencil_apply(i, o, w)],
+                lambda i=img, o=offsets, w=weights:
+                    [halo_stencil.stencil_apply_plain(i, o, w)],
+                2 * nbytes(img), 2 * len(offsets) * img.numel())
+            ry = max(abs(dy) for _, dy in offsets)
+            rx = max(abs(dx) for dx, _ in offsets)
+            k = torch.zeros(1, 1, 2 * ry + 1, 2 * rx + 1, device=dev)
+            for (dx, dy), w in zip(offsets, weights):
+                k[0, 0, dy + ry, dx + rx] += w
+            library[name] = (lambda i=img, k=k, pad=(ry, rx): F.conv2d(
+                i[None, None], k, padding=pad)[0, 0])
+    print("slice-5 K14 stencil_apply (conv2d beside it, "
+          "torch.backends.cudnn.allow_tf32 = False):")
+    out.update(check_cases(torch, stencil, reps))
+    for name, fn in library.items():
+        kern = stencil[name][0]()[0]
+        rel, _ = rel_err([fn()], [kern])
+        out[name]["library_ms"] = cuda_ms(torch, fn, reps)
+        print(f"  library {name}: conv2d {out[name]['library_ms'] * 1e3:.1f}"
+              f" us (max rel diff from K14 {rel:.1e})")
+    return out
+
+
+def run_slice5_paths(torch, drive_call, card):
+    """Phase 14: the slice-5 paths.  drive_call(fn) runs fn with the launch
+    counts zeroed just before it and returns (fn's result, ms,
+    launches)."""
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+    from opt_tpu_torch.ops import halo_stencil, poisson_cuda, stream_cuda
+
+    for label, size, n_iters, want_cost in POISSON_CG_PATHS:
+        plan = new_poisson_plan(opt_tpu_torch, energies, size, 1, n_iters)
+        solver = poisson_cuda.PoissonCudaSolver(plan)
+        inputs = poisson_inputs(size, size)
+        solve = lambda: solver.solve(inputs, n_iters)
+        out, ms, launches = drive_call(solve)
+        print(f"path {label} {n_iters}: PoissonCudaSolver {ms:.1f} ms "
+              f"(cold) launches={launches}")
+        check_launches(label, launches, {"poisson_cg": 1})
+        check_finite(label, out["x"]["X"], (size, size, 4))
+        check_cost(label, out["final_cost"], want_cost)
+        best = best_of_3_call(torch, solve, f"{label} {n_iters} (warm)",
+                              card)
+        if size == BIG:
+            profile_call(torch, solve, f"{label} {n_iters}", card, best)
+
+    for label, energy, size, n_outer, n_linear, want_cost in RESIDENT_PATHS:
+        fn = getattr(energies, energy)
+        state = opt_tpu_torch.NewState(device=DEVICE)
+        plan = state.problem_plan(state.problem_define(fn, "gaussNewtonGPU"),
+                                  [size, size])
+        plan.set_solver_parameter("nIterations", n_outer)
+        plan.set_solver_parameter("lIterations", n_linear)
+        solver = stream_cuda.StreamSolver(plan)
+        warp = fn is energies.image_warping
+        inputs = warp_inputs(size, size) if warp else poisson_inputs(size,
+                                                                     size)
+        solve = lambda: solver.solve(inputs)
+        out, ms, launches = drive_call(solve)
+        print(f"path {label} {n_outer}x{n_linear}: StreamSolver {ms:.1f} ms "
+              f"(cold) launches={launches}")
+        want = {"resident_pcg": n_outer}
+        if warp:  # K3: the initial cost, then linearize and cost a step
+            want["warp_linearize"] = 1 + 2 * n_outer
+        check_launches(label, launches, want)
+        for n, shape in plan.funcs.unknown_shapes.items():
+            check_finite(f"{label} {n}", out["x"][n], shape)
+        check_cost(label, out["final_cost"], want_cost)
+        name = f"{label} {n_outer}x{n_linear}"
+        best = best_of_3_call(torch, solve, f"{name} (warm)", card)
+        if warp:
+            # the cuda engine's solve of the same problem, in the same run
+            cuda_best = best_of_3(torch, plan, inputs, "cuda", name, card)
+            print(f"resident {name}: cuda engine / StreamSolver "
+                  f"{cuda_best / best:.3f} ({card})")
+            profile_call(torch, solve, f"{name} StreamSolver", card, best)
+
+    # K14 through its entry point: the JAX test's taps on a 4096^2 image
+    offsets, weights = STENCIL_TAPS["radius1"]
+    img = torch.as_tensor(np.random.RandomState(14).randn(
+        BIG_STENCIL, BIG_STENCIL).astype(np.float32), device=DEVICE)
+    out, ms, launches = drive_call(
+        lambda: halo_stencil.stencil_apply(img, offsets, weights))
+    label = f"stencil {BIG_STENCIL}x{BIG_STENCIL}"
+    print(f"path {label}: stencil_apply {ms:.1f} ms (cold) "
+          f"launches={launches}")
+    check_launches(label, launches, {"stencil_apply": 1})
+    rel, _ = rel_err([out], [halo_stencil.stencil_apply_plain(img, offsets,
+                                                               weights)])
+    print(f"{label}: max rel err {rel:.3e} against the plain version")
+    if rel > KERNEL_RTOL:
+        raise AssertionError(f"{label}: output disagrees")
+
+
+def check_finite(label, t, shape):
+    """t is finite and of the shape given."""
+    if tuple(t.shape) != tuple(shape) or not bool(t.isfinite().all()):
+        raise AssertionError(f"{label}: shape {tuple(t.shape)} or non-finite"
+                             " values")
+
+
 def main():
     import torch
 
@@ -876,7 +1212,8 @@ def main():
     from opt_tpu_torch import energies
     from opt_tpu_torch.ops import build, pcg_update as k2
     from opt_tpu_torch.ops import graph_cuda, stream3d_cuda, stream_cuda
-    from opt_tpu_torch.ops import vol_cuda, warp_cuda
+    from opt_tpu_torch.ops import halo_stencil, poisson_cuda, vol_cuda
+    from opt_tpu_torch.ops import warp_cuda
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -903,19 +1240,24 @@ def main():
                stream_cuda.warp_pipelined_sweep, stream3d_cuda.vol_hat_apply,
                stream3d_cuda.vol_pipelined_sweep, vol_cuda.vol_linearize,
                graph_cuda.graph_gather, graph_cuda.graph_scatter,
-               graph_cuda.graph_hat_apply)
+               graph_cuda.graph_hat_apply, poisson_cuda.poisson_cg,
+               stream_cuda.resident_pcg, halo_stencil.stencil_apply)
     total = {k.__name__: 0 for k in kernels}
 
-    def drive(plan, inputs):
-        """One solve with every launch count zeroed just before it and
-        read just after."""
+    def drive_call(fn):
+        """fn() with every launch count zeroed just before it and read just
+        after: (its result, ms, launches)."""
         for k in kernels:
             k.launches = 0
-        cost, ms = timed_solve(torch, plan, inputs)
+        out, ms = timed_call(torch, fn)
         launches = {k.__name__: k.launches for k in kernels}
         for name, n in launches.items():
             total[name] += n
-        return cost, ms, launches
+        return out, ms, launches
+
+    def drive(plan, inputs):
+        """One solve through drive_call."""
+        return drive_call(lambda: plan.solve(inputs))
 
     # -- the first path: 512x512 GN 8x400 ----------------------------------
     plan = new_plan(opt_tpu_torch, energies, "gaussNewtonGPU", W, N_OUTER,
@@ -1025,6 +1367,10 @@ def main():
                                        BIG_TIMING_REPS))
     run_graph_paths(torch, drive, card)
 
+    # -- slice 5: the whole-loop kernels and the stencil, then their paths -
+    timings.update(check_slice5_kernels(torch, dev, BIG_TIMING_REPS))
+    run_slice5_paths(torch, drive_call, card)
+
     rows = []
     for name, src, repl, case in (
         ("warp_jtj_apply", "opt_tpu_torch/csrc/warp_kernels.cu",
@@ -1050,6 +1396,13 @@ def main():
         ("graph_hat_apply", "opt_tpu_torch/csrc/graph_kernels.cu",
          "opt_tpu/ops/graph_pcg_kernel.py:250",
          "graph_hat_apply(gn, p_prev)"),
+        ("poisson_cg", "opt_tpu_torch/csrc/poisson_kernels.cu",
+         "opt_tpu/ops/poisson_pallas.py:63", "poisson_cg(C=4, 512x512)"),
+        ("resident_pcg", "opt_tpu_torch/csrc/resident_kernels.cu",
+         "opt_tpu/ops/stream_solver.py:378", "resident_pcg(warp, 512x512)"),
+        ("stencil_apply", "opt_tpu_torch/csrc/stencil_kernels.cu",
+         "opt_tpu/ops/halo_stencil.py:51",
+         "stencil_apply(radius1, 4096x4096)"),
     ):
         err = max(v["max_abs_err"] for k, v in timings.items()
                   if k.split("(")[0] == name)
@@ -1059,8 +1412,9 @@ def main():
                      "plain_ms": timings[case]["plain_ms"],
                      "bound_ms": timings[case]["bound_ms"],
                      "bound_by": timings[case]["bound_by"],
-                     # index_select and index_add_ compute K9's and K10's
-                     # functions; no single PyTorch call computes the others
+                     # index_select, index_add_ and conv2d compute K9's,
+                     # K10's and K14's functions; no single PyTorch call
+                     # computes the others
                      "library_ms": timings[case].get("library_ms")})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": rows}))

@@ -16,7 +16,11 @@ unchanged one loads the library it already built.  Importing this module
 needs no nvcc and no card; library() raises when there is no nvcc.
 
 Each C entry point launches on the stream it is given and returns
-cudaGetLastError(); check() raises on a non-zero code.
+cudaGetLastError(); check() raises on a non-zero code.  The whole-loop
+kernels (K12, K13) launch cooperatively on a grid that their *_blocks
+entry sizes from the occupancy query; a refused launch
+(cudaErrorCooperativeLaunchTooLarge or any other) comes back as its code,
+and coop_blocks() raises on a failed query.
 """
 
 from __future__ import annotations
@@ -56,6 +60,13 @@ SIGNATURES = {
     "opt_graph_scatter": [_P] * 4 + [_I] * 3 + [_P],
     "opt_graph_blocks": [_I],
     "opt_graph_hat_apply": [_P] * 5 + [_I] + [_P] * 8 + [_I, _P],
+    "opt_poisson_cg_blocks": [_I],
+    "opt_poisson_cg": [_P] * 7 + [_I] * 5 + [_P],
+    "opt_resident_warp_blocks": [_I],
+    "opt_resident_poisson_blocks": [_I],
+    "opt_resident_warp": [_P] * 12 + [_I] * 4 + [_P],
+    "opt_resident_poisson": [_P] * 7 + [_I] * 5 + [_P],
+    "opt_stencil_apply": [_P, _P] + [_I] * 4 + [_P] * 4,
 }
 
 _lib = None
@@ -142,6 +153,14 @@ def check(rc, name):
     if rc != 0:
         msg = _lib.opt_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def coop_blocks(n, name):
+    """The grid of a cooperative launch, from its *_blocks entry's value
+    n: a block count, or minus the CUDA error of the occupancy query."""
+    if n <= 0:
+        check(-n, name)
+    return n
 
 
 def ptr(t):

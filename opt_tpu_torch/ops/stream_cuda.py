@@ -32,6 +32,18 @@ pipelined_pcg below), over an energy's hat apply and pipelined sweep:
              iterations the residual replacement r = b_hat - A_hat delta,
              w = A_hat r, one K4 each (stream_solver.py:1216-1700).
 
+The resident-state solver (row 3, StreamSolver._build_kernel) is the
+third hat-space backend, outside Plan.solve's engines: StreamSolver runs
+each GN outer step's whole classic PCG as one launch of
+
+  K13 resident_pcg  lIterations of p = r + beta p, A_hat p, the dots and
+                    the updates, every vector kept in device memory (L2 at
+                    512^2) across three grid syncs an iteration
+                    (csrc/resident_kernels.cu), for image_warping and
+                    poisson_image_editing
+
+with the outer step on WarpOperator's K3 or on the plan's evaluator.
+
 Variant choice as in stream_solver.py:725-760: GN runs pipelined, LM
 classic; variant= picks either for either.  Every vector is the solver's
 flat unknown layout (Offset (H, W, 2) then Angle (H, W, 1)); the kernels
@@ -47,9 +59,11 @@ import math
 
 import torch
 
-from ..solver.core import _safe_div
+from .. import energies
+from ..solver.core import SolverConfig, _safe_div, make_solver
 from . import build
 from .pcg_update import pcg_update
+from .poisson_cuda import MAX_CHANNELS, EvaluatorOuter, poisson_jtj_plain
 from .warp_cuda import (WarpOperator, _flat_keep, _shapes,
                         warp_jtj_apply_plain)
 
@@ -359,3 +373,163 @@ class StreamOperator(WarpOperator):
                                         b_hat=b_hat if lm else None)
 
         return hat_pcg(self.variant, hat_apply, sweep, b_hat, sp, lm)
+
+
+# ---------------------------------------------------------------------------
+# the resident-state solver: one K13 launch per outer step
+# ---------------------------------------------------------------------------
+
+
+class WarpHat:
+    """image_warping's A_hat for K13, at the linearization point x, on the
+    flat (3 H W) layout."""
+
+    def __init__(self, x, ur, cons, mask, params):
+        self.operands = dict(x=x, ur=ur, cons=cons, mask=mask, params=params)
+        self.H, self.W = mask.shape[:2]
+
+    def shapes(self):
+        return _shapes(self.H, self.W)
+
+    def apply_plain(self, sq, p):
+        return warp_hat_apply_plain(*self.operands.values(), sq, None, p)[1]
+
+    def blocks(self, lib):
+        return lib.opt_resident_warp_blocks(self.H * self.W)
+
+    def launch(self, lib, sq, b_hat, delta, r, p, ap, parts, n_iters,
+               blocks):
+        return lib.opt_resident_warp(
+            *map(build.ptr, (*self.operands.values(), sq, b_hat, delta, r, p,
+                             ap, parts)),
+            self.H, self.W, n_iters, blocks, build.stream())
+
+
+class PoissonHat:
+    """poisson_image_editing's A_hat for K13 on the flat (H, W, C) vector:
+    sq J^T J (sq v); sq is 0 at the excluded pixels."""
+
+    operands = {}
+
+    def __init__(self, H, W, C):
+        self.H, self.W, self.C = H, W, C
+
+    def shapes(self):
+        return {}
+
+    def apply_plain(self, sq, p):
+        H, W, C = self.H, self.W, self.C
+        v = (sq * p).view(H, W, C).permute(2, 0, 1)
+        return sq * poisson_jtj_plain(v).permute(1, 2, 0).reshape(-1)
+
+    def blocks(self, lib):
+        return lib.opt_resident_poisson_blocks(self.H * self.W)
+
+    def launch(self, lib, sq, b_hat, delta, r, p, ap, parts, n_iters,
+               blocks):
+        return lib.opt_resident_poisson(
+            *map(build.ptr, (sq, b_hat, delta, r, p, ap, parts)),
+            self.H, self.W, self.C, n_iters, blocks, build.stream())
+
+
+def resident_pcg_plain(hat, sq, b_hat, n_iters):
+    """StreamSolver's kernel body (stream_solver.py:424-550) in torch:
+    n_iters of classic PCG on A_hat d = b_hat from r = p = b_hat, with
+    alpha = an / <p, A_hat p> where that is not 0 and beta = bn / an where
+    an is not 0, no early exit.  Returns d_hat."""
+    delta = torch.zeros_like(b_hat)
+    r = p = b_hat
+    an = torch.dot(r, r)
+    for _ in range(n_iters):
+        ap = hat.apply_plain(sq, p)
+        alpha = _safe_div(an, torch.dot(p, ap))
+        delta = delta + alpha * p
+        r = r - alpha * ap
+        bn = torch.dot(r, r)
+        p = r + _safe_div(bn, an) * p
+        an = bn
+    return delta
+
+
+def resident_pcg(hat, sq, b_hat, n_iters):
+    """K13: d_hat after n_iters of PCG in the hat space (hat: WarpHat or
+    PoissonHat) -- one cooperative launch on CUDA, plain on CPU."""
+    if build.all_on_cpu(sq, b_hat, *hat.operands.values()):
+        return resident_pcg_plain(hat, sq, b_hat, n_iters)
+    n = b_hat.numel()
+    build.check_tensors("resident_pcg", {**hat.shapes(), "sq": (n,),
+                                         "b_hat": (n,)},
+                        **hat.operands, sq=sq, b_hat=b_hat)
+    lib = build.library()
+    blocks = build.coop_blocks(hat.blocks(lib), "resident_pcg")
+    delta, r, p, ap = (torch.empty_like(b_hat) for _ in range(4))
+    parts = torch.empty(2 * blocks, dtype=b_hat.dtype, device=b_hat.device)
+    rc = hat.launch(lib, sq, b_hat, delta, r, p, ap, parts, int(n_iters),
+                    blocks)
+    build.check(rc, "resident_pcg")
+    resident_pcg.launches += 1
+    return delta
+
+
+resident_pcg.launches = 0
+
+
+def supports(plan):
+    """StreamSolver's gate (stream_solver.py:104-159, state_in="vmem"):
+    Gauss-Newton, f32, one 2-D grid of centered term groups, and an energy
+    whose A_hat K13 holds in closed form: image_warping or
+    poisson_image_editing.  The JAX gate's lane and sublane alignment and
+    its VMEM budget model are TPU scaffolding and are not ported."""
+    energy = plan.problem.energy
+    return (not plan.config.uses_lambda
+            and plan.funcs.dtype == torch.float32
+            and not plan.spec.graphs and len(plan.dims) == 2
+            and all(g.kind == "centered" for g in plan.funcs.groups)
+            and (energy is energies.image_warping
+                 or (energy is energies.poisson_image_editing
+                     and plan.funcs.unknown_shapes["X"][-1] <= MAX_CHANNELS)))
+
+
+class StreamSolver:
+    """The whole GN solve with one outer step's PCG in one kernel (port of
+    stream_solver.py StreamSolver, :327-684): nIterations outer steps,
+    each the solver's GN step (solver/core.py) with K13 as its
+    pcg_backend -- linearize, J^T F, diag, the masks and sq = sqrt(pre)
+    (sq = 0 at excluded unknowns, pre = 1 without a preconditioner), then
+    one K13 launch of lIterations on b_hat = sq (-J^T F), then
+    x += sq d_hat and the cost.  The outer step runs on WarpOperator's K3
+    for image_warping and on the plan's evaluator (EvaluatorOuter) for
+    poisson, which the JAX package also runs in XLA.  It runs on the
+    plan's device; no Plan.solve engine reaches it."""
+
+    def __init__(self, plan):
+        if not supports(plan):
+            raise ValueError(
+                "StreamSolver holds Gauss-Newton f32 plans of image_warping "
+                "or poisson_image_editing on one 2-D grid")
+        self.plan = plan
+        config = SolverConfig(
+            guarded_invert_type=plan.config.guarded_invert_type)
+        self._full_solve = make_solver(config, plan.funcs.dtype,
+                                       plan.funcs.use_preconditioner)[3]
+
+    def _operator(self, data):
+        plan = self.plan
+        if plan.problem.energy is energies.image_warping:
+            op = WarpOperator(data)
+            hat = lambda: WarpHat(op._x, op.ur, op.cons, op.mask_img,
+                                  op.params)
+        else:
+            op = EvaluatorOuter(plan.funcs, data, plan.layout)
+            hat = lambda: PoissonHat(*plan.funcs.unknown_shapes["X"])
+        op.pcg_backend = lambda sq, scs, b_hat, sp: resident_pcg(
+            hat(), sq, b_hat, int(sp["lIterations"]))
+        return op
+
+    def solve(self, inputs):
+        """{"x": name -> unknown tensor, "final_cost": float}."""
+        plan = self.plan
+        x, data = plan.bind(inputs)
+        st = self._full_solve(x, self._operator(data), plan.solver_params)
+        return {"x": plan.layout.views(st["x"]),
+                "final_cost": float(st["prev_cost"])}

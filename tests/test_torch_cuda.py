@@ -450,3 +450,141 @@ def test_graph_launch_failure_raises_through_solve(dev, monkeypatch):
         plan.solve(chip_smoke.arap_inputs(19))
     assert plan.engine == "graph"
     torch.cuda.synchronize()
+
+
+# the slice-5 kernels: K12 and K13 at a ragged 37 x 23 (ragged 256-pixel
+# blocks) with excluded pixels, at 50 iterations, where a stale read of a
+# neighbour's p across a grid sync would show; K14 at ragged shapes
+ITERS = [1, chip_smoke.RESIDENT_CHECK_ITERS]
+def _poisson_operands(dev, C, seed=10):
+    """b (C, 23, 37) with channel 2 zero when C is 4, and keep with an
+    excluded frame and an excluded pixel inside."""
+    rng = np.random.RandomState(seed)
+    Ws, Hs = chip_smoke.SMALL_POISSON
+    keep = np.zeros((Hs, Ws), np.float32)
+    keep[3:-3, 4:-4] = 1.0
+    keep[11, 17] = 0.0
+    b = rng.randn(C, Hs, Ws).astype(np.float32)
+    if C == 4:
+        b[2] = 0.0
+    return (torch.as_tensor(b, device=dev), torch.as_tensor(keep, device=dev))
+
+
+@pytest.mark.parametrize("n_iters", ITERS)
+@pytest.mark.parametrize("C", [1, 4])
+def test_poisson_cg_kernel_matches_plain(dev, C, n_iters):
+    from opt_tpu_torch.ops import poisson_cuda
+
+    b, keep = _poisson_operands(dev, C)
+    n = poisson_cuda.poisson_cg.launches
+    got = poisson_cuda.poisson_cg(b, keep, n_iters)
+    assert poisson_cuda.poisson_cg.launches == n + 1
+    _close([got], [poisson_cuda.poisson_cg_plain(b, keep, n_iters)])
+    assert torch.isfinite(got).all()
+    if C == 4:
+        assert not got[2].any()  # the all-zero channel: delta 0, no NaN
+    assert not got[:, keep == 0].any()
+    # no float atomics: a second launch matches bit for bit
+    assert torch.equal(got, poisson_cuda.poisson_cg(b, keep, n_iters))
+
+
+@pytest.mark.parametrize("n_iters", ITERS)
+@pytest.mark.parametrize("energy", ["warp", "poisson"])
+def test_resident_pcg_kernel_matches_plain(dev, energy, n_iters):
+    hat, sq, b_hat = chip_smoke.resident_operands(torch, energy,
+                                                  *chip_smoke.SMALL_POISSON,
+                                                  dev)
+    n = stream_cuda.resident_pcg.launches
+    got = stream_cuda.resident_pcg(hat, sq, b_hat, n_iters)
+    assert stream_cuda.resident_pcg.launches == n + 1
+    _close([got], [stream_cuda.resident_pcg_plain(hat, sq, b_hat, n_iters)])
+    assert not got[sq == 0].any()
+    assert torch.equal(got, stream_cuda.resident_pcg(hat, sq, b_hat,
+                                                     n_iters))
+
+
+@pytest.mark.parametrize("tile", [7, 32, 64])
+@pytest.mark.parametrize("shape", [(64, 128), (100, 200), (33, 450)])
+def test_stencil_kernel_matches_plain(dev, shape, tile):
+    from opt_tpu_torch.ops import halo_stencil
+
+    img = torch.as_tensor(np.random.RandomState(11).randn(*shape).astype(
+        np.float32), device=dev)
+    for offsets, weights in chip_smoke.STENCIL_TAPS.values():
+        n = halo_stencil.stencil_apply.launches
+        got = halo_stencil.stencil_apply(img, offsets, weights, tile)
+        assert halo_stencil.stencil_apply.launches == n + 1
+        _close([got], [halo_stencil.stencil_apply_plain(img, offsets,
+                                                        weights)])
+
+
+class _ProxyLibrary:
+    """The kernel library with its grid queries multiplied: a cooperative
+    grid larger than the card holds at once."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name.endswith("_blocks"):
+            return lambda *args: 1000 * fn(*args)
+        return fn
+
+
+def test_refused_launches_raise(dev, monkeypatch):
+    """A cooperative grid too large to be resident is refused, not run:
+    K12 and K13 raise.  K14 raises for a tile whose window needs more
+    shared memory than a block has."""
+    from opt_tpu_torch.ops import build, halo_stencil, poisson_cuda
+
+    b, keep = _poisson_operands(dev, 4)
+    hat, sq, b_hat = chip_smoke.resident_operands(
+        torch, "warp", *chip_smoke.SMALL_POISSON, dev)
+    lib = build.library()
+    monkeypatch.setattr(build, "library", lambda: _ProxyLibrary(lib))
+    with pytest.raises(RuntimeError, match="poisson_cg: CUDA error"):
+        poisson_cuda.poisson_cg(b, keep, 5)
+    with pytest.raises(RuntimeError, match="resident_pcg: CUDA error"):
+        stream_cuda.resident_pcg(hat, sq, b_hat, 5)
+    monkeypatch.undo()
+    with pytest.raises(RuntimeError, match="stencil_apply: CUDA error"):
+        halo_stencil.stencil_apply(torch.zeros(4096, 64, device=dev),
+                                   ((1, 0),), (1.0,), tile=4096)
+    torch.cuda.synchronize()
+
+
+def test_resident_solvers_agree_with_the_cpu(dev):
+    """StreamSolver (both energies) and PoissonCudaSolver on the card
+    against the same solves on a CPU plan (the plain versions), and
+    repeated card solves bit for bit."""
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+    from opt_tpu_torch.ops import poisson_cuda
+
+    W, H = 96, 64
+    for energy, inputs in (
+            (energies.image_warping, chip_smoke.warp_inputs(W, H, seed=6)),
+            (energies.poisson_image_editing,
+             chip_smoke.poisson_inputs(W, H))):
+        costs = {}
+        for device in ("cuda", "cpu"):
+            st = opt_tpu_torch.NewState(device=device)
+            plan = st.problem_plan(st.problem_define(energy,
+                                                     "gaussNewtonGPU"),
+                                   [W, H])
+            plan.set_solver_parameter("nIterations", 3)
+            plan.set_solver_parameter("lIterations", 40)
+            costs[device] = stream_cuda.StreamSolver(plan).solve(
+                inputs)["final_cost"]
+            if energy is energies.poisson_image_editing:
+                costs[device, "cg"] = poisson_cuda.PoissonCudaSolver(
+                    plan).solve(inputs, 60)["final_cost"]
+            if device == "cuda":
+                assert stream_cuda.StreamSolver(plan).solve(
+                    inputs)["final_cost"] == costs[device]
+        assert np.isfinite(costs["cuda"])
+        assert costs["cuda"] == pytest.approx(costs["cpu"], rel=1e-4)
+        if ("cuda", "cg") in costs:
+            assert costs["cuda", "cg"] == pytest.approx(costs["cpu", "cg"],
+                                                        rel=1e-5)

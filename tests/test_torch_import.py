@@ -23,6 +23,9 @@ def test_import_loads_no_jax():
         "import opt_tpu_torch.ops.stream_cuda, opt_tpu_torch.ops.vol_cuda\n"
         "import opt_tpu_torch.ops.stream3d_cuda, chip_smoke\n"
         "import opt_tpu_torch.ops.graph_cuda\n"
+        "import opt_tpu_torch.ops.poisson_cuda\n"
+        "import opt_tpu_torch.ops.halo_stencil\n"
+        "from opt_tpu_torch.ops.stream_cuda import StreamSolver\n"
         "import opt_tpu_torch.compile.evaluate\n"
         "import opt_tpu_torch.compile.plan_fns\n"
         "bad = sorted(m for m in sys.modules\n"
@@ -42,6 +45,11 @@ def test_build_key_covers_every_source():
     assert "vol_kernels.cu" in srcs and "stream3d_kernels.cu" in srcs
     assert "vol_energy.cuh" in [h.name for h in build.headers()]
     assert "graph_kernels.cu" in srcs
+    for name in ("poisson_kernels.cu", "resident_kernels.cu",
+                 "stencil_kernels.cu"):
+        assert name in srcs
+    for name in ("poisson_energy.cuh", "resident_pcg.cuh"):
+        assert name in [h.name for h in build.headers()]
     assert build._key() == build._key()
     assert "-gencode" in build.NVCC_FLAGS
     assert "--use_fast_math" not in build.NVCC_FLAGS
@@ -83,3 +91,29 @@ def test_graph_kernels_are_bound_and_registered():
     for k in (graph_cuda.graph_gather, graph_cuda.graph_scatter,
               graph_cuda.graph_hat_apply):
         assert k.launches >= 0
+
+
+def test_slice5_kernels_are_bound():
+    """K12-K14's C entry points have ctypes signatures, and their wrappers
+    count launches; importing them needs no nvcc and no card."""
+    from opt_tpu_torch.ops import halo_stencil, poisson_cuda, stream_cuda
+
+    for name in ("opt_poisson_cg_blocks", "opt_poisson_cg",
+                 "opt_resident_warp_blocks", "opt_resident_warp",
+                 "opt_resident_poisson_blocks", "opt_resident_poisson",
+                 "opt_stencil_apply"):
+        assert name in build.SIGNATURES
+    for k in (poisson_cuda.poisson_cg, stream_cuda.resident_pcg,
+              halo_stencil.stencil_apply):
+        assert k.launches >= 0
+
+
+def test_coop_blocks_raises_on_a_failed_query(monkeypatch):
+    class Lib:
+        def opt_cuda_error_string(self, code):
+            return b"cooperative launch is too large"
+
+    monkeypatch.setattr(build, "_lib", Lib())
+    assert build.coop_blocks(264, "k") == 264
+    with pytest.raises(RuntimeError, match="k: CUDA error 82"):
+        build.coop_blocks(-82, "k")
