@@ -275,7 +275,7 @@ class FuncsOperator:
         self.data = data
         self.layout = layout
         self._x = None
-        self._masks = None
+        self.masks = None  # the unknowns' exclusion masks at the last outer
         self._r0 = None
         self._jvp = None
         self._jt = None
@@ -285,7 +285,7 @@ class FuncsOperator:
 
     def outer(self, xf):
         self._x = x = self.layout.views(xf)
-        self._masks = self.funcs.unknown_masks(x, self.data)
+        self.masks = self.funcs.unknown_masks(x, self.data)
         self._r0, self._jvp, self._jt = self.funcs.linearize(x, self.data)
         jtf = self.layout.pack(self.funcs.jtf(self._r0, self._jt))
         diag = self.layout.pack(self.funcs.diag_jtj(x, self.data))
@@ -293,7 +293,7 @@ class FuncsOperator:
 
     def mask(self, v):
         return self.layout.pack(self.funcs.mask_unknown_tree(
-            self.layout.views(v), self._masks))
+            self.layout.views(v), self.masks))
 
     def apply(self, p, ctc=None):
         jtjp = self.layout.pack(self._jt(self._jvp(self.layout.views(p))))
@@ -308,3 +308,19 @@ class FuncsOperator:
                                      self.data)
 
     update = staticmethod(pcg_update_plain)
+
+
+class EvaluatorOuter(FuncsOperator):
+    """FuncsOperator for a GN step whose PCG runs on a pcg_backend, which
+    replaces apply: outer traces no J p, takes J^T F from one vjp of the
+    residuals and the diag only where the energy uses a preconditioner."""
+
+    def outer(self, xf):
+        funcs, data = self.funcs, self.data
+        self._x = x = self.layout.views(xf)
+        self.masks = funcs.unknown_masks(x, data)
+        r0, jt = _vjp(lambda xx: funcs.residuals_solve(xx, data), x)
+        jtf = self.layout.pack(jt(r0)[0])
+        if not funcs.use_preconditioner:  # core reads only its shape
+            return jtf, torch.zeros_like(jtf)
+        return jtf, self.layout.pack(funcs.diag_jtj(x, data))

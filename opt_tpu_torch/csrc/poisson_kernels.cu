@@ -12,8 +12,12 @@
 // scalars computes the same result.  The loop is resident_pcg.cuh's.
 //
 // Bound on the card: what the function must move is small (b and keep
-// in, delta out: 2C + 1 planes), so its bound is its arithmetic, about 28
-// flops an element an iteration.  What the kernel moves is about 11
+// in, delta out: 2C + 1 planes), so its bound is its arithmetic, 17 flops
+// an element an iteration: J^T J p as 2 (deg p - the sum of the in-domain
+// neighbours), 6, the keep multiply, 1, the two dots, 4, and the three
+// updates, 6.  (poisson_jtj_at adds each neighbour difference twice, about
+// 16 flops for those 6: the apply is not what limits this kernel, the grid
+// syncs and the bytes are.)  What the kernel moves is about 11
 // planes a channel an iteration (the apply reads p with its halo and
 // writes Ap; the update reads delta, p, r, Ap and writes delta and r; the
 // p step reads r and p and writes p): at 512^2 x 4 channels the four

@@ -25,6 +25,9 @@
 // constants, x, sq and b_hat) and writes d_hat; each iteration the kernel
 // moves about 10 planes an unknown channel through L2 (device memory past
 // L2's 50 MB) and, for image_warping, evaluates five rotations a pixel.
+// Poisson needs 18 flops an element an iteration: K12's 17
+// (poisson_kernels.cu) with sq on the way in and on the way out in place
+// of the keep multiply.
 
 #include "poisson_energy.cuh"
 #include "resident_pcg.cuh"

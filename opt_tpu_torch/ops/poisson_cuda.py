@@ -21,9 +21,11 @@ ported.
 from __future__ import annotations
 
 import torch
-from torch.func import vjp
 
 from ..compile.evaluate import shift_read
+from ..compile import plan_fns
+from ..dsl.env import EnergyEnv
+from ..dsl.spec import ProblemSpec
 from ..solver.core import _safe_div
 from . import build
 
@@ -122,69 +124,64 @@ poisson_cg.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the solvers' outer step on the plan's evaluator, and the solver
+# the energies K12 and K13's poisson mode hold, and the solver
 # ---------------------------------------------------------------------------
 
 
-class EvaluatorOuter:
-    """The part of the solver seam (solver/core.py) that a GN step with a
-    pcg_backend reads -- cost(x), outer(x) -> (J^T F, diag) and mask(v) --
-    on the plan's evaluator: J^T F by one vjp of the residuals, diag only
-    where the energy uses a preconditioner.  (FuncsOperator also traces J p
-    for its PCG apply, which the backend replaces.)"""
+def poisson_energy(C):
+    """energies.poisson_image_editing with X and T of C channels."""
+    def energy(O):
+        W, H = O.Dim("W", 0), O.Dim("H", 1)
+        X = O.Unknown("X", C, (W, H), 0)
+        T = O.Array("T", C, (W, H), 1)
+        M = O.Array("M", O.opt_float, (W, H), 2)
+        O.UsePreconditioner(False)
+        O.Exclude(O.Not(O.eq(M(0, 0), 0)))
+        for x, y in O.Stencil(DIRS):
+            e = (X(0, 0) - X(x, y)) - (T(0, 0) - T(x, y))
+            O.Energy(O.Select(O.InBounds(x, y), e, 0))
+    return energy
 
-    pcg_backend = None
 
-    def __init__(self, funcs, data, layout):
-        self.funcs, self.data, self.layout = funcs, data, layout
-        self.masks = None
-
-    def cost(self, xf):
-        return self.funcs.cost(self.layout.views(xf), self.data)
-
-    def outer(self, xf):
-        funcs, data = self.funcs, self.data
-        x = self.layout.views(xf)
-        self.masks = funcs.unknown_masks(x, data)
-        r0, jt = vjp(lambda xx: funcs.residuals_solve(xx, data), x)
-        jtf = self.layout.pack(jt(r0)[0])
-        if not funcs.use_preconditioner:  # core reads only its shape
-            return jtf, torch.zeros_like(jtf)
-        return jtf, self.layout.pack(funcs.diag_jtj(x, data))
-
-    def mask(self, v):
-        return self.layout.pack(self.funcs.mask_unknown_tree(
-            self.layout.views(v), self.masks))
+def is_poisson(plan):
+    """True where the plan's residuals and exclusion are
+    poisson_image_editing's, term for term, on 1 to MAX_CHANNELS channels
+    of a 2-D grid, without a preconditioner: the delta system keep . J^T J
+    that csrc/poisson_energy.cuh holds in closed form."""
+    spec = plan.spec
+    shapes = plan.funcs.unknown_shapes
+    C = shapes["X"][-1] if list(shapes) == ["X"] else 0
+    if (spec.use_preconditioner or len(plan.dims) != 2
+            or not 1 <= C <= MAX_CHANNELS):
+        return False
+    ref = ProblemSpec()
+    poisson_energy(C)(EnergyEnv(ref, plan.dims))
+    return (repr(spec.terms), repr(spec.excludes)) == (repr(ref.terms),
+                                                       repr(ref.excludes))
 
 
 class PoissonCudaSolver:
-    """One GN step of a poisson-style plan (one unknown on a 2-D grid, its
-    delta system the poisson Laplacian, f32) as one K12 launch: the
-    counterpart of PoissonPallasSolver (poisson_pallas.py:119-174).  It
+    """One GN step of a poisson plan (is_poisson, f32) as one K12 launch:
+    the counterpart of PoissonPallasSolver (poisson_pallas.py:119-174),
+    which takes any plan and solves its delta system as poisson's.  It
     runs on the plan's device; on a CPU plan K12's plain version runs."""
 
+    name = "X"
+
     def __init__(self, plan):
-        funcs = plan.funcs
-        shapes = list(funcs.unknown_shapes.items())
-        if (funcs.dtype != torch.float32 or len(shapes) != 1
-                or len(shapes[0][1]) != 3
-                or not 1 <= shapes[0][1][-1] <= MAX_CHANNELS):
+        if plan.funcs.dtype != torch.float32 or not is_poisson(plan):
             raise ValueError(
-                "PoissonCudaSolver takes an f32 plan with one unknown of 1 to "
-                f"{MAX_CHANNELS} channels on a 2-D grid")
+                "PoissonCudaSolver takes f32 plans of poisson_image_editing "
+                f"on 1 to {MAX_CHANNELS} channels")
         self.plan = plan
-        self.name = shapes[0][0]
 
     def _prep(self, xf, data):
         """(b, keep): b = -J^T F masked, as (C, H, W), and keep (H, W),
         from the plan's evaluator (poisson_pallas.py:129-137)."""
-        op = EvaluatorOuter(self.plan.funcs, data, self.plan.layout)
+        op = plan_fns.EvaluatorOuter(self.plan.funcs, data, self.plan.layout)
         jtf, _ = op.outer(xf)
         b = op.mask(-jtf).view(self.plan.funcs.unknown_shapes[self.name])
-        excl = op.masks[self.name]
-        H, W, _ = b.shape
-        keep = (torch.ones((H, W), dtype=b.dtype, device=b.device)
-                if excl is None else (~excl[..., 0]).to(b.dtype))
+        keep = (~op.masks[self.name][..., 0]).to(b.dtype)  # is_poisson: M
         return b.permute(2, 0, 1).contiguous(), keep
 
     def solve(self, inputs, n_iters):

@@ -60,10 +60,11 @@ import math
 import torch
 
 from .. import energies
+from ..compile import plan_fns
 from ..solver.core import SolverConfig, _safe_div, make_solver
 from . import build
 from .pcg_update import pcg_update
-from .poisson_cuda import MAX_CHANNELS, EvaluatorOuter, poisson_jtj_plain
+from .poisson_cuda import is_poisson, poisson_jtj_plain
 from .warp_cuda import (WarpOperator, _flat_keep, _shapes,
                         warp_jtj_apply_plain)
 
@@ -477,17 +478,15 @@ resident_pcg.launches = 0
 def supports(plan):
     """StreamSolver's gate (stream_solver.py:104-159, state_in="vmem"):
     Gauss-Newton, f32, one 2-D grid of centered term groups, and an energy
-    whose A_hat K13 holds in closed form: image_warping or
-    poisson_image_editing.  The JAX gate's lane and sublane alignment and
-    its VMEM budget model are TPU scaffolding and are not ported."""
-    energy = plan.problem.energy
+    whose A_hat K13 holds in closed form: image_warping, or poisson
+    (poisson_cuda.is_poisson).  The JAX gate's lane and sublane alignment
+    and its VMEM budget model are TPU scaffolding and are not ported."""
     return (not plan.config.uses_lambda
             and plan.funcs.dtype == torch.float32
             and not plan.spec.graphs and len(plan.dims) == 2
             and all(g.kind == "centered" for g in plan.funcs.groups)
-            and (energy is energies.image_warping
-                 or (energy is energies.poisson_image_editing
-                     and plan.funcs.unknown_shapes["X"][-1] <= MAX_CHANNELS)))
+            and (plan.problem.energy is energies.image_warping
+                 or is_poisson(plan)))
 
 
 class StreamSolver:
@@ -520,7 +519,7 @@ class StreamSolver:
             hat = lambda: WarpHat(op._x, op.ur, op.cons, op.mask_img,
                                   op.params)
         else:
-            op = EvaluatorOuter(plan.funcs, data, plan.layout)
+            op = plan_fns.EvaluatorOuter(plan.funcs, data, plan.layout)
             hat = lambda: PoissonHat(*plan.funcs.unknown_shapes["X"])
         op.pcg_backend = lambda sq, scs, b_hat, sp: resident_pcg(
             hat(), sq, b_hat, int(sp["lIterations"]))

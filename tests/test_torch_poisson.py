@@ -161,14 +161,36 @@ def test_solver_matches_poisson_pallas_solver(pallas_case):
                                   inputs["X"][excl])
 
 
+def smooth(O):
+    """One unknown on a 2-D grid whose delta system is not poisson's."""
+    Wd, Hd = O.Dim("W", 0), O.Dim("H", 1)
+    X = O.Unknown("X", O.opt_float, (Wd, Hd), 0)
+    O.UsePreconditioner(False)
+    for x, y in ((1, 0), (0, 1)):
+        O.Energy(O.Select(O.InBounds(x, y), X(0, 0) - X(x, y), 0))
+
+
+def poisson_precond(O):
+    """poisson1 with the Jacobi preconditioner on."""
+    poisson1(O)
+    O.UsePreconditioner(True)
+
+
 def test_solver_rejects_other_plans():
-    ts = opt_tpu_torch.NewState(device="cpu", double_precision=True)
-    plan = ts.problem_plan(ts.problem_define(
-        energies.poisson_image_editing, "gaussNewtonGPU"), [W, H])
+    def plan(energy, **state):
+        ts = opt_tpu_torch.NewState(device="cpu", **state)
+        return ts.problem_plan(ts.problem_define(energy, "gaussNewtonGPU"),
+                               [W, H])
+
+    for energy in (energies.poisson_image_editing, poisson1):
+        assert poisson_cuda.is_poisson(plan(energy))
+        poisson_cuda.PoissonCudaSolver(plan(energy))
     with pytest.raises(ValueError, match="f32"):
-        poisson_cuda.PoissonCudaSolver(plan)
-    ts = opt_tpu_torch.NewState(device="cpu")
-    plan = ts.problem_plan(ts.problem_define(energies.image_warping,
-                                             "gaussNewtonGPU"), [W, H])
-    with pytest.raises(ValueError, match="one unknown"):
-        poisson_cuda.PoissonCudaSolver(plan)
+        poisson_cuda.PoissonCudaSolver(plan(energies.poisson_image_editing,
+                                            double_precision=True))
+    # K12 solves poisson's Laplacian whatever the plan: any other delta
+    # system would get a wrong delta with no error
+    for energy in (energies.image_warping, smooth, poisson_precond):
+        assert not poisson_cuda.is_poisson(plan(energy))
+        with pytest.raises(ValueError, match="poisson_image_editing"):
+            poisson_cuda.PoissonCudaSolver(plan(energy))
