@@ -10,11 +10,12 @@ BASELINE.md.
 from __future__ import annotations
 
 
-def poisson_image_editing(O):
-    """reference: examples/poisson_image_editing/poisson_image_editing.t:1-13."""
+def poisson_image_editing(O, channels=4):
+    """reference: examples/poisson_image_editing/poisson_image_editing.t:1-13
+    (X and T float4; ops/poisson_cuda.is_poisson builds it on 1-4)."""
     W, H = O.Dim("W", 0), O.Dim("H", 1)
-    X = O.Unknown("X", O.opt_float4, (W, H), 0)
-    T = O.Array("T", O.opt_float4, (W, H), 1)
+    X = O.Unknown("X", channels, (W, H), 0)
+    T = O.Array("T", channels, (W, H), 1)
     M = O.Array("M", O.opt_float, (W, H), 2)
     O.UsePreconditioner(False)
     O.Exclude(O.Not(O.eq(M(0, 0), 0)))

@@ -22,8 +22,9 @@ from __future__ import annotations
 
 import torch
 
-from ..compile.evaluate import shift_read
+from .. import energies
 from ..compile import plan_fns
+from ..compile.evaluate import shift_read
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
 from ..solver.core import _safe_div
@@ -124,23 +125,8 @@ poisson_cg.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the energies K12 and K13's poisson mode hold, and the solver
+# the plans K12 and K13's poisson mode hold, and the solver
 # ---------------------------------------------------------------------------
-
-
-def poisson_energy(C):
-    """energies.poisson_image_editing with X and T of C channels."""
-    def energy(O):
-        W, H = O.Dim("W", 0), O.Dim("H", 1)
-        X = O.Unknown("X", C, (W, H), 0)
-        T = O.Array("T", C, (W, H), 1)
-        M = O.Array("M", O.opt_float, (W, H), 2)
-        O.UsePreconditioner(False)
-        O.Exclude(O.Not(O.eq(M(0, 0), 0)))
-        for x, y in O.Stencil(DIRS):
-            e = (X(0, 0) - X(x, y)) - (T(0, 0) - T(x, y))
-            O.Energy(O.Select(O.InBounds(x, y), e, 0))
-    return energy
 
 
 def is_poisson(plan):
@@ -155,7 +141,7 @@ def is_poisson(plan):
             or not 1 <= C <= MAX_CHANNELS):
         return False
     ref = ProblemSpec()
-    poisson_energy(C)(EnergyEnv(ref, plan.dims))
+    energies.poisson_image_editing(EnergyEnv(ref, plan.dims), C)
     return (repr(spec.terms), repr(spec.excludes)) == (repr(ref.terms),
                                                        repr(ref.excludes))
 
