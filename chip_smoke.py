@@ -15,11 +15,12 @@ Phases (any failure raises and the exit code is non-zero):
      400 PCG iterations, through NewState(device="cuda") ... plan.solve
      with engine="auto"; check that it picked the CUDA engine, that every
      kernel launched the expected number of times inside that solve, and
-     that the final cost matches the plain torch engine on the same card
-     and the JAX package's CPU value;
+     that the final cost matches the JAX package's CPU value, and the
+     plain torch engine's on the same card at 2x100 the CUDA engine's;
   5. time warm solves of the CUDA engine (best of 3) beside the plain
-     engine's one timed solve of phase 4, and profile one CUDA-engine
-     solve: device time by kernel and the device's busy share;
+     engine's one timed 2x100 solve of phase 4, and profile one
+     CUDA-engine solve: device time by kernel and the device's busy
+     share;
   6. hold the slice-2 kernels and modes against their plain versions at
      2048x2048: K4 warp_hat_apply (GN, and LM with scs), K5
      warp_pipelined_sweep (GN, and its LM mode), K1 with LM's ctc, K3's
@@ -85,8 +86,23 @@ Phases (any failure raises and the exit code is non-zero):
                                               beside the cuda engine,
        poisson 512x512 GN 8x100            -> StreamSolver (8 K13),
        a 4096x4096 stencil                 -> stencil_apply (1 K14);
-     and profile the 2048x2048 poisson CG and the warp StreamSolver solve;
- 15. print {"kernels": [...]} (K1-K14: launches over the paths, agreement,
+     and profile each of them;
+ 15. hold the slice-6 kernels against their plain versions at the sharded
+     paths' slab shapes, 2048x2048 and 128^3 on 4 slabs (the first, two
+     interior and the last slab each held on its own): K15
+     warp_slab_apply, K3's global-offset mode (J^T F and diag, cost only,
+     model cost), K16 vol_slab_apply, K8's global-offset mode;
+ 16. run the slice-6 paths through Plan.solve(inputs, mesh=make_mesh(4)),
+     the slab form of a mesh on the one card, each with its own launch
+     counts (K15 or K16 against the count its loops make), its final cost
+     against the single-card engine's in the same run and the JAX
+     package's CPU value, its warm solve (best of 3) beside the
+     single-card engine's, and a profile:
+       2048x2048 GN 8x100, "stream" pipelined and classic (K15, K3),
+       2048x2048 LM 8x100, "stream" (K15, K3),
+       128^3 GN 8x100, "stream3d" pipelined (K16, K8),
+       256x256 GN 2x20, "halo" (the plain evaluator, against "torch");
+ 17. print {"kernels": [...]} (K1-K16: launches over the paths, agreement,
      times, and the bound: the least time the card could take for each
      kernel's bytes and operations) and, last, {"ok": true, "device":
      {...}}.
@@ -104,6 +120,8 @@ import numpy as np
 DEVICE = "cuda"
 W = H = 512
 N_OUTER, N_LINEAR = 8, 400
+# the plain engine's check on the main path, at a cut depth
+TORCH_OUTER, TORCH_LINEAR = 2, 100
 # opt_tpu (JAX, CPU) final cost of the same solve: warp_inputs(512, 512),
 # image_warping, gaussNewtonGPU 8x400, plan.solve(..., engine="xla").
 # Regenerate with
@@ -163,6 +181,29 @@ VOL_PATHS = (
 )
 # the odd-sized volume of the slice-3 kernel checks: ragged 32x8 blocks
 SMALL_VOL = (37, 23, 11)
+# The slice-6 paths: Plan.solve(inputs, mesh=make_mesh(SHARD_SLABS)), the
+# slab form of a mesh on the one card.  (label, energy, solver kind, size
+# (a side), outer, PCG iterations, engine, Plan.stream_variant, the variant
+# it must run, the single-card engine it is held against, that rtol, and
+# the JAX package's CPU constant, or None.)  The streamed paths are the
+# slice-2 and slice-3 paths cut into slabs (bench.py's aux_large_grid and
+# aux_volumetric), held to the reference's sharded tolerances
+# (docs/GUIDE.md:204-207); the halo path shows that the plain evaluator
+# runs over the slabs on the card, against the torch engine.
+SHARD_SLABS = 4
+SHARD_PATHS = (
+    ("2048 GN pipelined", "image_warping", "gaussNewtonGPU", BIG, 8, 100,
+     "stream", None, "pipelined", "stream", 2e-5, PATHS[0][-1]),
+    ("2048 GN classic", "image_warping", "gaussNewtonGPU", BIG, 8, 100,
+     "stream", "classic", "classic", "stream", 2e-5, PATHS[0][-1]),
+    ("2048 LM", "image_warping", "LMGPU", BIG, 8, 100, "stream", None,
+     "classic", "stream", 2e-5, PATHS[1][-1]),
+    ("128^3 GN", "volumetric_mesh_deformation", "gaussNewtonGPU", VOL, 8,
+     100, "stream3d", None, "pipelined", "stream3d", 5e-4,
+     VOL_PATHS[0][-1]),
+    ("256 GN halo", "image_warping", "gaussNewtonGPU", 256, 2, 20, "halo",
+     None, None, "torch", 2e-5, None),
+)
 # The slice-4 paths: arap_mesh_deformation on bench.aux_arap's mesh
 # (MESH x MESH triangulated grid, 10,404 vertices, 61,610 edges) and on a
 # BIG_MESH x BIG_MESH one (262,144 vertices, 1,568,770 edges), with
@@ -257,13 +298,15 @@ STENCIL_TAPS = {
 }
 STENCIL_SHAPES = ((64, 128), (100, 200), (33, 450))
 BIG_STENCIL = 4096
+STENCIL_REPS = 20
 # the port's kernels as the profiler names them
 KERNEL_SYMBOLS = (
     "warp_jtj_apply_kernel", "warp_linearize_kernel", "pcg_update_kernel",
     "warp_hat_apply_kernel", "warp_pipelined_sweep_kernel",
     "vol_hat_apply_kernel", "vol_pipelined_sweep_kernel",
     "vol_linearize_kernel", "graph_gather_kernel", "graph_scatter_kernel",
-    "graph_hat_apply_kernel", "pcg_kernel<", "stencil_kernel")
+    "graph_hat_apply_kernel", "pcg_kernel<", "stencil_kernel",
+    "warp_slab_apply_kernel", "vol_slab_apply_kernel")
 
 
 def warp_inputs(W, H, seed=0):
@@ -608,6 +651,156 @@ def volume_kernel_operands(torch, W, H, D, dev, seed=1):
             as_dev([0.8, 1.3]), t)
 
 
+def slab_operands(torch, W, H, n_slabs, dev, seed=1):
+    """kernel_operands' image_warping grid cut into n_slabs extended slabs
+    (the stream engine's halo, 2 rows), as the sharded engine hands them to
+    K15 and K3's offset mode: (x, ur, cons, mask, params, vectors,
+    geometry), x and every vector (S, 3 (n + 4) W), each slab's flat
+    unknown layout over its rows."""
+    from opt_tpu_torch.parallel.mesh import make_mesh
+
+    x, ur, cons, mask, params, t = kernel_operands(torch, W, H, dev, seed)
+    mesh, he, n = make_mesh(n_slabs, device=dev), 2, H // n_slabs
+
+    def slabs(v):
+        parts = (v[:2 * H * W].view(n_slabs, n, W, 2),
+                 v[2 * H * W:].view(n_slabs, n, W, 1))
+        return torch.cat([mesh.ext(a, he).reshape(n_slabs, -1)
+                          for a in parts], dim=1)
+
+    ext = lambda a: mesh.ext(mesh.shard(a), he).contiguous()
+    return (slabs(x), ext(ur), ext(cons), ext(mask), params,
+            {k: slabs(v) for k, v in t.items()}, (n, he, -he, H))
+
+
+def vol_slab_operands(torch, W, H, D, n_slabs, dev, seed=1):
+    """volume_kernel_operands' volume cut into n_slabs extended D slabs
+    (halo 2 planes), as the sharded engine hands them to K16 and K8's
+    offset mode: (x, ur, cons, params, vectors, geometry)."""
+    from opt_tpu_torch.parallel.mesh import make_mesh
+
+    x, ur, cons, params, t = volume_kernel_operands(torch, W, H, D, dev,
+                                                    seed)
+    mesh, he, n = make_mesh(n_slabs, device=dev), 2, D // n_slabs
+    half = 3 * D * H * W
+
+    def slabs(v):
+        return torch.cat([mesh.ext(a.view(n_slabs, n, H, W, 3), he)
+                          .reshape(n_slabs, -1)
+                          for a in (v[:half], v[half:])], dim=1)
+
+    ext = lambda a: mesh.ext(mesh.shard(a), he).contiguous()
+    return (slabs(x), ext(ur), ext(cons), params,
+            {k: slabs(v) for k, v in t.items()}, (n, he, -he, D))
+
+
+def per_slab(v, S, shapes):
+    """A local flat vector (every unknown's (S, ...) slabs in turn) as the
+    tuple of each slab's parts, for per-slab agreement; a (S,) vector of
+    per-slab costs as its S entries."""
+    if v is None or v.numel() == S:
+        return () if v is None else tuple(v)
+    parts, o = [], 0
+    for shape in shapes:
+        size = S * int(np.prod(shape))
+        parts.append(v[o:o + size].view(S, -1))
+        o += size
+    return tuple(p[s] for s in range(S) for p in parts)
+
+
+def check_slab_kernels(torch, dev, reps):
+    """Phase 15: K15 and K16 and the offset modes of K3 and K8 against
+    their plain versions at the sharded paths' slab shapes (2048^2 and
+    128^3 on SHARD_SLABS slabs), every slab held on its own (the first,
+    the interior ones, the last)."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    S = SHARD_SLABS
+    x, ur, cons, mask, params, t, g = slab_operands(torch, BIG, BIG, S, dev)
+    n, he = g[:2]
+    warp = [(n, BIG, 2), (n, BIG, 1)]
+    split = lambda out: sum((per_slab(v, S, warp) for v in (
+        out if isinstance(out, tuple) else (out,))), ())
+    consts = nbytes(ur, cons, mask, params)
+    angle = x.view(S, 3, -1)[:, 2]  # each slab's Angle rows
+    own_px, own_vec = S * n * BIG, 3 * S * n * BIG * 4
+    cases = {
+        "warp_slab_apply": (
+            lambda: split(sc.warp_slab_apply(x, ur, cons, mask, params,
+                                             t["sq"], t["p"], g)),
+            lambda: split(sc.warp_slab_apply_plain(
+                x, ur, cons, mask, params, t["sq"], t["p"], g)),
+            consts + nbytes(angle, t["sq"], t["p"]) + own_vec,
+            OPS["warp_hat_apply"] * own_px),
+        "warp_linearize(slab)": (
+            lambda: split(sc.warp_slab_linearize(x, ur, cons, mask, params,
+                                                 g)),
+            lambda: split(sc.warp_slab_linearize_plain(
+                x, ur, cons, mask, params, g)),
+            consts + nbytes(x) + 2 * own_vec,
+            OPS["warp_linearize"] * own_px),
+        "warp_linearize(slab, cost_only)": (
+            lambda: split(sc.warp_slab_linearize(x, ur, cons, mask, params,
+                                                 g, cost_only=True)),
+            lambda: split(sc.warp_slab_linearize_plain(
+                x, ur, cons, mask, params, g, cost_only=True)),
+            consts + nbytes(x), OPS["warp_linearize(cost)"] * own_px),
+        "warp_linearize(slab, model_cost)": (
+            lambda: split(sc.warp_slab_linearize(
+                x, ur, cons, mask, params, g, delta=t["delta"])),
+            lambda: split(sc.warp_slab_linearize_plain(
+                x, ur, cons, mask, params, g, delta=t["delta"])),
+            consts + nbytes(x, t["delta"]),
+            OPS["warp_linearize(cost)"] * own_px),
+    }
+    print(f"slab kernels at {BIG}x{BIG} on {S} slabs of {n} rows "
+          f"(halo {he}):")
+    out = check_cases(torch, cases, reps)
+
+    xv, urv, consv, paramsv, tv, gv = vol_slab_operands(
+        torch, VOL, VOL, VOL, S, dev)
+    n = gv[0]
+    vol = [(n, VOL, VOL, 3)] * 2
+    split = lambda out: sum((per_slab(v, S, vol) for v in (
+        out if isinstance(out, tuple) else (out,))), ())
+    consts = nbytes(urv, consv, paramsv)
+    angle = xv.view(S, 2, -1)[:, 1]
+    own_vox, own_vec = S * n * VOL * VOL, 6 * S * n * VOL * VOL * 4
+    cases = {
+        "vol_slab_apply": (
+            lambda: split(sc.vol_slab_apply(xv, urv, consv, paramsv,
+                                            tv["sq"], tv["p"], gv)),
+            lambda: split(sc.vol_slab_apply_plain(
+                xv, urv, consv, paramsv, tv["sq"], tv["p"], gv)),
+            consts + nbytes(angle, tv["sq"], tv["p"]) + own_vec,
+            OPS["vol_hat_apply"] * own_vox),
+        "vol_linearize(slab)": (
+            lambda: split(sc.vol_slab_linearize(xv, urv, consv, paramsv,
+                                                gv)),
+            lambda: split(sc.vol_slab_linearize_plain(xv, urv, consv,
+                                                      paramsv, gv)),
+            consts + nbytes(xv) + 2 * own_vec,
+            OPS["vol_linearize"] * own_vox),
+        "vol_linearize(slab, cost_only)": (
+            lambda: split(sc.vol_slab_linearize(
+                xv, urv, consv, paramsv, gv, cost_only=True)),
+            lambda: split(sc.vol_slab_linearize_plain(
+                xv, urv, consv, paramsv, gv, cost_only=True)),
+            consts + nbytes(xv), OPS["vol_linearize(cost)"] * own_vox),
+        "vol_linearize(slab, model_cost)": (
+            lambda: split(sc.vol_slab_linearize(
+                xv, urv, consv, paramsv, gv, delta=tv["delta"])),
+            lambda: split(sc.vol_slab_linearize_plain(
+                xv, urv, consv, paramsv, gv, delta=tv["delta"])),
+            consts + nbytes(xv, tv["delta"]),
+            OPS["vol_linearize(model_cost)"] * own_vox),
+    }
+    print(f"slab kernels at {VOL}^3 on {S} slabs of {n} planes "
+          f"(halo {gv[1]}):")
+    out.update(check_cases(torch, cases, reps))
+    return out
+
+
 def check_vol_kernels(torch, dev, dims, reps):
     """Phase 9: the slice-3 kernels and modes vs their plain versions on a
     (W, H, D) volume."""
@@ -776,6 +969,7 @@ def profile_call(torch, fn, label, card, wall_ms):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
+        torch.cuda.synchronize()  # a call that ends in no host read
     # device-side rows only: the aten op rows repeat their kernels' time
     rows = [(e.key, e.count, e.self_device_time_total)
             for e in prof.key_averages()
@@ -871,11 +1065,10 @@ def run_graph_paths(torch, drive, card, paths=GRAPH_PATHS,
         profile_solve(torch, plan, mesh_inputs, "auto", name, card, best)
         if kind == "gaussNewtonGPU" and w == MESH:
             # the plain engine on the card: K9 and K10 in the evaluator
-            for rep in ("cold", "warm"):
-                cost_t, ms_t = timed_solve(torch, plan, mesh_inputs, "torch")
-                print(f"solve {name} engine=torch: one {rep} solve "
-                      f"{ms_t:.1f} ms ({card})")
-                check_cost(f"{label} torch", cost_t, want_cost)
+            cost_t, ms_t = timed_solve(torch, plan, mesh_inputs, "torch")
+            print(f"solve {name} engine=torch: one solve {ms_t:.1f} ms "
+                  f"({card})")
+            check_cost(f"{label} torch", cost_t, want_cost)
             print(f"graph route {name}: torch/graph {ms_t / best:.3f} "
                   f"({card})")
             # bench.aux_arap's own inputs: a rigid optimum, cost zero
@@ -952,6 +1145,15 @@ def expected_launches_graph(kind, n_outer, n_linear, period=10):
     return {"graph_hat_apply": n + resets, "pcg_update": n,
             "graph_gather": 4 + n_outer * (13 if lm else 12),
             "graph_scatter": 4 * n_outer}
+
+
+def expected_slab_applies(variant, lm, n_outer, n_linear, period=10):
+    """K15 or K16 launches in one sharded solve: per outer step the
+    pipelined w_0 and one apply an iteration, or one an iteration and, in
+    LM, one more at each reset (parallel/stream_shard.py's loops)."""
+    if lm:
+        return n_outer * (n_linear + n_linear // period)
+    return n_outer * (n_linear + (variant == "pipelined"))
 
 
 def check_launches(label, launches, want):
@@ -1151,8 +1353,7 @@ def run_slice5_paths(torch, drive_call, card):
         check_cost(label, out["final_cost"], want_cost)
         best = best_of_3_call(torch, solve, f"{label} {n_iters} (warm)",
                               card)
-        if size == BIG:
-            profile_call(torch, solve, f"{label} {n_iters}", card, best)
+        profile_call(torch, solve, f"{label} {n_iters}", card, best)
 
     for label, energy, size, n_outer, n_linear, want_cost in RESIDENT_PATHS:
         fn = getattr(energies, energy)
@@ -1183,7 +1384,7 @@ def run_slice5_paths(torch, drive_call, card):
             cuda_best = best_of_3(torch, plan, inputs, "cuda", name, card)
             print(f"resident {name}: cuda engine / StreamSolver "
                   f"{cuda_best / best:.3f} ({card})")
-            profile_call(torch, solve, f"{name} StreamSolver", card, best)
+        profile_call(torch, solve, f"{name} StreamSolver", card, best)
 
     # K14 through its entry point: the JAX test's taps on a 4096^2 image
     offsets, weights = STENCIL_TAPS["radius1"]
@@ -1200,6 +1401,81 @@ def run_slice5_paths(torch, drive_call, card):
     print(f"{label}: max rel err {rel:.3e} against the plain version")
     if rel > KERNEL_RTOL:
         raise AssertionError(f"{label}: output disagrees")
+    # one call, ended by a host read of one pixel; the profiler sees no
+    # device time in a window of one such call, so it profiles STENCIL_REPS
+    stencil = lambda: float(halo_stencil.stencil_apply(img, offsets,
+                                                       weights)[0, 0])
+    best = best_of_3_call(torch, stencil, label, card)
+    profile_call(torch, lambda: [stencil() for _ in range(STENCIL_REPS)],
+                 f"{label} x{STENCIL_REPS}", card, STENCIL_REPS * best)
+
+
+def run_shard_paths(torch, drive_call, card):
+    """Phase 16: the slice-6 paths through Plan.solve(inputs,
+    mesh=make_mesh(SHARD_SLABS)), each with its launch counts against those
+    its loops make, its final cost against the single-card engine's in the
+    same run (and the JAX package's CPU value), its warm solve beside the
+    single-card engine's, and a profile.  drive_call as in phase 14."""
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+    from opt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(SHARD_SLABS, device=DEVICE)
+    for (label, energy, kind, size, n_outer, n_linear, engine, variant,
+         want_variant, single, rtol, want_cost) in SHARD_PATHS:
+        vol = engine == "stream3d"
+        state = opt_tpu_torch.NewState(device=DEVICE)
+        plan = state.problem_plan(
+            state.problem_define(getattr(energies, energy), kind),
+            [size] * (3 if vol else 2))
+        plan.set_solver_parameter("nIterations", n_outer)
+        plan.set_solver_parameter("lIterations", n_linear)
+        plan.stream_variant = variant
+        inputs = volume_inputs(size) if vol else warp_inputs(size, size)
+        solve = lambda: plan.solve(inputs, engine=engine, mesh=mesh)
+        cost, ms, launches = drive_call(solve)
+        name = f"{label} {n_outer}x{n_linear} on {SHARD_SLABS} slabs"
+        print(f"path {name}: engine={plan.engine} variant={plan.variant} "
+              f"{ms:.1f} ms (cold) launches={launches}")
+        if (plan.engine, plan.variant) != (engine, want_variant):
+            raise AssertionError(f"{name}: ran {plan.engine!r} "
+                                 f"{plan.variant!r}")
+        want = {}
+        if engine != "halo":  # the halo path runs the plain evaluator
+            lm = kind == "LMGPU"
+            apply = "vol_slab_apply" if vol else "warp_slab_apply"
+            want = {apply: expected_slab_applies(want_variant, lm, n_outer,
+                                                 n_linear),
+                    "vol_linearize" if vol else "warp_linearize":
+                        1 + n_outer * (3 if lm else 2)}
+            print(f"{name}: {apply} launched {launches[apply]} times, the "
+                  f"loops make {want[apply]}")
+        check_launches(name, launches, want)
+        shapes = ({n: (size,) * 3 + (3,) for n in ("Offset", "Angle")}
+                  if vol else {"Offset": (size, size, 2),
+                               "Angle": (size, size, 1)})
+        check_unknowns(plan, shapes)
+        best = best_of_3_call(torch, solve, f"{name} (warm)", card)
+        # the single-card engine on the same plan and inputs, in this run
+        cost1 = plan.solve(inputs, engine=single)
+        if single == "torch":  # it traces J p at every outer step
+            best1 = timed_solve(torch, plan, inputs, single)[1]
+            print(f"solve {label} {n_outer}x{n_linear} engine=torch: one "
+                  f"warm solve {best1:.1f} ms ({card})")
+        else:
+            best1 = best_of_3(torch, plan, inputs, single,
+                              f"{label} {n_outer}x{n_linear}", card)
+        rel = abs(cost - cost1) / abs(cost1)
+        print(f"{name} final cost {cost!r}, {single} engine {cost1!r} (rel "
+              f"{rel:.3e}, tol {rtol:.0e}); warm {best:.1f} ms against "
+              f"{best1:.1f} ms, {best / best1:.3f}x the single card "
+              f"({card})")
+        if not np.isfinite(cost) or rel > rtol:
+            raise AssertionError(f"{name}: final cost disagrees with the "
+                                 f"{single} engine's")
+        if want_cost is not None:
+            check_cost(name, cost, want_cost)
+        profile_call(torch, solve, name, card, best)
 
 
 def check_finite(label, t, shape):
@@ -1220,7 +1496,7 @@ def main():
     from opt_tpu_torch.ops import build, pcg_update as k2
     from opt_tpu_torch.ops import graph_cuda, stream3d_cuda, stream_cuda
     from opt_tpu_torch.ops import halo_stencil, poisson_cuda, vol_cuda
-    from opt_tpu_torch.ops import warp_cuda
+    from opt_tpu_torch.ops import slab_cuda, warp_cuda
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -1248,7 +1524,8 @@ def main():
                stream3d_cuda.vol_pipelined_sweep, vol_cuda.vol_linearize,
                graph_cuda.graph_gather, graph_cuda.graph_scatter,
                graph_cuda.graph_hat_apply, poisson_cuda.poisson_cg,
-               stream_cuda.resident_pcg, halo_stencil.stencil_apply)
+               stream_cuda.resident_pcg, halo_stencil.stencil_apply,
+               slab_cuda.warp_slab_apply, slab_cuda.vol_slab_apply)
     total = {k.__name__: 0 for k in kernels}
 
     def drive_call(fn):
@@ -1285,20 +1562,29 @@ def main():
                              " K3")
     check_unknowns(plan, {"Offset": (H, W, 2), "Angle": (H, W, 1)})
 
-    # the plain engine's one timed solve is also the cost check's
-    cost_torch, torch_ms = timed_solve(torch, plan, inputs, "torch")
-    rel_torch = abs(cost - cost_torch) / abs(cost_torch)
     rel_jax = abs(cost - JAX_CPU_FINAL_COST) / JAX_CPU_FINAL_COST
-    print(f"final cost: cuda {cost!r}  torch {cost_torch!r} (rel "
-          f"{rel_torch:.3e})  jax-cpu {JAX_CPU_FINAL_COST!r} (rel "
+    print(f"final cost: cuda {cost!r}  jax-cpu {JAX_CPU_FINAL_COST!r} (rel "
           f"{rel_jax:.3e})  tol {COST_RTOL:.0e}")
-    if not np.isfinite(cost) or rel_torch > COST_RTOL or rel_jax > COST_RTOL:
+    if not np.isfinite(cost) or rel_jax > COST_RTOL:
         raise AssertionError("final cost disagrees")
+    # the plain engine, held to the cuda engine at a cut depth: it traces J p
+    # at every outer step and took 49-53 s at the full 8x400
+    plan.set_solver_parameter("nIterations", TORCH_OUTER)
+    plan.set_solver_parameter("lIterations", TORCH_LINEAR)
+    cost_torch, torch_ms = timed_solve(torch, plan, inputs, "torch")
+    cost_short = plan.solve(inputs, engine="cuda")
+    rel_torch = abs(cost_short - cost_torch) / abs(cost_torch)
+    print(f"final cost {TORCH_OUTER}x{TORCH_LINEAR}: cuda {cost_short!r}  "
+          f"torch {cost_torch!r} (rel {rel_torch:.3e}, tol {COST_RTOL:.0e})")
+    if not np.isfinite(cost_torch) or rel_torch > COST_RTOL:
+        raise AssertionError("final cost disagrees with the plain engine")
+    plan.set_solver_parameter("nIterations", N_OUTER)
+    plan.set_solver_parameter("lIterations", N_LINEAR)
 
     # -- warm solve times ---------------------------------------------------
     cuda_best = best_of_3(torch, plan, inputs, "cuda",
                           f"512x512 GN {N_OUTER}x{N_LINEAR}", card)
-    print(f"solve 512x512 GN {N_OUTER}x{N_LINEAR} engine=torch: one warm "
+    print(f"solve 512x512 GN {TORCH_OUTER}x{TORCH_LINEAR} engine=torch: one "
           f"solve {torch_ms:.1f} ms ({card})")
     profile_solve(torch, plan, inputs, "cuda",
                   f"512x512 GN {N_OUTER}x{N_LINEAR}", card, cuda_best)
@@ -1378,6 +1664,10 @@ def main():
     timings.update(check_slice5_kernels(torch, dev, BIG_TIMING_REPS))
     run_slice5_paths(torch, drive_call, card)
 
+    # -- slice 6: the slab kernels, then the paths over a mesh of slabs ----
+    timings.update(check_slab_kernels(torch, dev, BIG_TIMING_REPS))
+    run_shard_paths(torch, drive_call, card)
+
     rows = []
     for name, src, repl, case in (
         ("warp_jtj_apply", "opt_tpu_torch/csrc/warp_kernels.cu",
@@ -1410,6 +1700,10 @@ def main():
         ("stencil_apply", "opt_tpu_torch/csrc/stencil_kernels.cu",
          "opt_tpu/ops/halo_stencil.py:51",
          "stencil_apply(radius1, 4096x4096)"),
+        ("warp_slab_apply", "opt_tpu_torch/csrc/stream_kernels.cu",
+         "opt_tpu/parallel/stream_shard.py:158", "warp_slab_apply"),
+        ("vol_slab_apply", "opt_tpu_torch/csrc/stream3d_kernels.cu",
+         "opt_tpu/parallel/stream_shard.py:610", "vol_slab_apply"),
     ):
         err = max(v["max_abs_err"] for k, v in timings.items()
                   if k.split("(")[0] == name)

@@ -83,31 +83,54 @@ def scatter_shift(a, offsets):
     return shift_read(a, tuple(-int(o) for o in offsets))
 
 
-def _coord(shape, axis, device):
-    """Integer coordinate along ``axis``, broadcastable against ``shape``."""
+def _coord(shape, axis, device, coord_offset=None):
+    """Integer coordinate along ``axis``, broadcastable against ``shape``;
+    global when coord_offset (per-axis global coordinate of the array's
+    [0, ...] corner) is given."""
     nd = len(shape)
     view = [1] * nd
     view[axis] = shape[axis]
-    return torch.arange(shape[axis], device=device).reshape(view)
+    c = torch.arange(shape[axis], device=device).reshape(view)
+    return c if coord_offset is None else c + int(coord_offset[axis])
 
 
-def bounds_mask(shape, mins, maxs, device):
-    """InBounds mask over the grid (genbounds, o.t:585-607)."""
+def bounds_mask(shape, mins, maxs, device, global_shape=None,
+                coord_offset=None):
+    """InBounds mask over the grid (genbounds, o.t:585-607).  On a slab of
+    a sharded grid (parallel/halo.py) coord_offset places the array in the
+    global grid, and the bounds test global positions against
+    global_shape (opt_tpu/compile/evaluate.py:193-216)."""
     nd = len(shape)
+    real = tuple(shape) if global_shape is None else tuple(global_shape)
     m = None
     for i in range(len(mins)):
         axis = nd - 1 - i
-        coord = _coord(shape, axis, device)
-        mi = (coord >= -int(mins[i])) & (coord < shape[axis] - int(maxs[i]))
+        coord = _coord(shape, axis, device, coord_offset)
+        mi = (coord >= -int(mins[i])) & (coord < real[axis] - int(maxs[i]))
         m = mi if m is None else (m & mi)
     if m is None:
         return torch.ones(shape, dtype=torch.bool, device=device)
     return m.expand(shape)
 
 
-def index_coords(shape, dim, shift, dtype, device):
+def real_domain_mask(shape, global_shape, coord_offset, device):
+    """True where a slab's array lies inside the global grid (its halo
+    rows past the global edge are outside), or None where all of it does
+    (opt_tpu/compile/evaluate.py:219-233, without the TPU padding)."""
+    m = None
+    for axis in range(len(shape)):
+        off = int(coord_offset[axis])
+        if off >= 0 and off + shape[axis] <= global_shape[axis]:
+            continue
+        coord = _coord(shape, axis, device, coord_offset)
+        mi = (coord >= 0) & (coord < global_shape[axis])
+        m = mi if m is None else (m & mi)
+    return None if m is None else m.expand(shape)
+
+
+def index_coords(shape, dim, shift, dtype, device, coord_offset=None):
     axis = len(shape) - 1 - dim
-    return _coord(shape, axis, device).to(dtype) + shift
+    return _coord(shape, axis, device, coord_offset).to(dtype) + shift
 
 
 # ---------------------------------------------------------------------------
@@ -139,13 +162,18 @@ class EvalContext:
     graph_incidence: graph name -> slot name -> (order, rowptr), the
                      slot's CSR incidence (ops/graph_cuda.incidence)
     unknown_names: the unknowns' names (see _slot_gather)
+    global_shape, coord_offset: on a slab of a sharded grid, the global
+            grid's shape and the slab array's global corner; InBounds and
+            Index then evaluate at global positions
     """
 
     def __init__(self, shape, images, params, dtype, device, domain="grid",
                  graph_indices=None, graph_incidence=None,
-                 unknown_names=()):
+                 unknown_names=(), global_shape=None, coord_offset=None):
         self.domain = domain
         self.shape = tuple(shape)
+        self.global_shape = global_shape
+        self.coord_offset = coord_offset
         self.images = images
         self.params = params
         self.graph_indices = graph_indices or {}
@@ -230,12 +258,13 @@ class EvalContext:
         if isinstance(e, E.BoundsAccess):
             if self.domain != "grid":
                 raise ValueError("InBounds used in a graph residual")
-            return bounds_mask(self.shape, e.mins, e.maxs, self.device)
+            return bounds_mask(self.shape, e.mins, e.maxs, self.device,
+                               self.global_shape, self.coord_offset)
         if isinstance(e, E.IndexValue):
             if self.domain != "grid":
                 raise ValueError("Index used in a graph residual")
             return index_coords(self.shape, e.dim, e.shift_, self.dtype,
-                                self.device)
+                                self.device, self.coord_offset)
         if isinstance(e, E.SampledAccess):
             not_ported("SampledImage reads", 7)
         if isinstance(e, E.ComputedAccess):

@@ -63,6 +63,13 @@ class ProblemFunctions:
             n: im.ispace.shape + (im.channels,)
             for n, im in self.unknowns.items()
         }
+        # on a slab of a sharded grid (parallel/halo.py): ispace key -> the
+        # global grid's shape, and the per-axis global coordinate of the
+        # slab array's [0, ...] corner, so that InBounds, Index and the
+        # domain's edge evaluate at global positions
+        # (opt_tpu/compile/plan_fns.py:34-43)
+        self.global_shapes = {}
+        self.coord_offsets = None
         unknown_idx = {im.idx for im in self.unknowns.values()
                        if im.idx is not None}
         for im in spec.images.values():
@@ -78,33 +85,47 @@ class ProblemFunctions:
         images.update(x)
         return images
 
-    def _ctx(self, shape, x, data, domain="grid"):
+    def _ctx(self, shape, x, data, domain="grid", key=None):
+        where = {}
+        if domain == "grid" and self.coord_offsets is not None:
+            where = dict(global_shape=self.global_shapes[key],
+                         coord_offset=self.coord_offsets)
         return ev.EvalContext(
             shape, self._images(x, data), data["params"], self.dtype,
             self.device, domain=domain,
             graph_indices=data.get("graph_indices"),
             graph_incidence=data.get("graph_incidence"),
-            unknown_names=self.unknowns)
+            unknown_names=self.unknowns, **where)
 
     def _group_ctx(self, g, x, data):
         """A context over a term group's domain: its grid, or the (E,)
         edges of its graph."""
         if g.kind == "centered":
-            return self._ctx(g.ispace.shape, x, data)
+            return self._ctx(g.ispace.shape, x, data, key=g.ispace.key())
         any_slot = next(iter(g.graph.slots))
         shape = data["graph_indices"][g.graph.name][any_slot].shape
         return self._ctx(shape, x, data, domain="graph")
 
-    def exclude_mask(self, ispace_key, x, data):
-        """Boolean 'excluded' mask over one index space, or None."""
-        exprs = self.excludes.get(ispace_key)
-        if not exprs:
+    def domain_mask(self, ispace_key, shape):
+        """True inside the global grid, on a slab whose rows reach past its
+        edge; None elsewhere."""
+        if self.coord_offsets is None:
             return None
+        return ev.real_domain_mask(shape, self.global_shapes[ispace_key],
+                                   self.coord_offsets, self.device)
+
+    def exclude_mask(self, ispace_key, x, data):
+        """Boolean 'excluded' mask over one index space, or None.  On a
+        slab, the rows outside the global grid count as excluded."""
+        exprs = self.excludes.get(ispace_key)
         shape = next(im.ispace.shape for im in self.spec.images.values()
                      if im.ispace.key() == ispace_key)
-        ctx = self._ctx(shape, x, data)
-        m = None
-        for e in exprs:
+        inside = self.domain_mask(ispace_key, shape)
+        if not exprs and inside is None:
+            return None
+        ctx = self._ctx(shape, x, data, key=ispace_key)
+        m = None if inside is None else ~inside
+        for e in exprs or ():
             v = ctx.eval(e)
             v = v if v.dtype == torch.bool else (v != 0)
             v = v.expand(shape)
@@ -140,6 +161,13 @@ class ProblemFunctions:
         for g in self.groups:
             ctx = self._group_ctx(g, x, data)
             fields = [ev.eval_field(e, ctx) for e in g.exprs]
+            if g.kind == "centered":
+                # a residual centred past the global grid's edge is none
+                inside = self.domain_mask(g.ispace.key(), ctx.shape)
+                if inside is not None:
+                    zero = torch.zeros((), dtype=self.dtype,
+                                       device=self.device)
+                    fields = [torch.where(inside, f, zero) for f in fields]
             if masked and g.kind == "centered":
                 m = self.exclude_mask(g.ispace.key(), x, data)
                 if m is not None:
@@ -223,6 +251,10 @@ class ProblemFunctions:
                                  for v, d in zip(vals, grads)])
             D = [torch.stack([row[i] for row in rows]).detach()
                  for i in range(len(leaves))]
+            inside = (self.domain_mask(g.ispace.key(), ctx.shape)
+                      if g.kind == "centered" else None)
+            if inside is not None:  # no residual past the global edge
+                D = [torch.where(inside, d, torch.zeros_like(d)) for d in D]
             yield g, leaves, D
 
     def diag_jtj(self, x, data, partials=None):
@@ -269,6 +301,7 @@ class FuncsOperator:
     until the next outer()."""
 
     pcg_backend = None
+    dot = staticmethod(torch.dot)
 
     def __init__(self, funcs, data, layout):
         self.funcs = funcs

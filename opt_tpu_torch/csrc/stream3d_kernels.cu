@@ -201,6 +201,47 @@ vol_pipelined_sweep_kernel(const float* __restrict__ x,
   }
 }
 
+// K16: A_hat p = sq . J^T J (sq . p) at the own planes of S extended D
+// slabs (VolSlabs in vol_energy.cuh; blockIdx.z = slab * n + own plane).
+// K6's apply without the beta step, scs or the dot: the slab loop adds
+// scs . p and takes the dots outside (opt_tpu/parallel/stream_shard.py:
+// 762-776).
+__global__ void __launch_bounds__(kVThreads)
+vol_slab_apply_kernel(const float* __restrict__ x,
+                      const float* __restrict__ ur,
+                      const float* __restrict__ cons,
+                      const float* __restrict__ params,
+                      const float* __restrict__ sq,
+                      const float* __restrict__ p, float* __restrict__ ap,
+                      int H, int W, VolSlabs sl) {
+  const int sb = blockIdx.z / sl.n, dc = blockIdx.z % sl.n;
+  const Vol g = sl.vol(sb, H, W);
+  const int w = blockIdx.x * kVX + threadIdx.x;
+  const int h = blockIdx.y * kVY + threadIdx.y;
+  if (h >= H || w >= W) return;
+  const int N = g.n();
+  // this slab's arrays
+  const float* xs = x + (size_t)sb * 6 * N;
+  const float* urs = ur + (size_t)sb * 3 * N;
+  const float* cs = cons + (size_t)sb * 3 * N;
+  const float* sqs = sq + (size_t)sb * 6 * N;
+  const float* ps = p + (size_t)sb * 6 * N;
+  const int d = sl.he + dc;
+  int idx[6];
+  unknown_idx(g.idx(d, h, w), N, idx);
+  float pk[6], a[6];
+  for (int c = 0; c < 6; ++c) pk[c] = ps[idx[c]];
+  vol_hat_at(g, d, h, w, xs, urs, cs, params, sqs, nullptr,
+             VolHatRead{ps, nullptr, sqs, 0.f, N}, idx, pk, a);
+  // the own voxel in the local layout
+  const int ko = ((sb * sl.n + dc) * H + h) * W + w;
+  const int No = sl.S * sl.n * H * W;
+  for (int c = 0; c < 3; ++c) {
+    ap[3 * ko + c] = a[c];
+    ap[3 * No + 3 * ko + c] = a[3 + c];
+  }
+}
+
 }  // namespace
 
 // p_out, pprev, beta and scs may be null: with pprev null the operand is r
@@ -232,5 +273,19 @@ extern "C" int opt_vol_pipelined_sweep(
                                (cudaStream_t)stream>>>(
       x, ur, cons, params, sq, scs, b_hat, w_in, w_out, z, s, p, delta, r,
       alpha, beta, gamma_partials, dd_partials, q_partials, D, H, W);
+  return (int)cudaGetLastError();
+}
+
+// K16: the arrays hold S extended D slabs of n + 2 he planes, slab s's
+// plane 0 at global plane d0 + s * n of Dg; ap covers the own planes in
+// the local layout
+extern "C" int opt_vol_slab_apply(const float* x, const float* ur,
+                                  const float* cons, const float* params,
+                                  const float* sq, const float* p, float* ap,
+                                  int S, int n, int he, int H, int W, int d0,
+                                  int Dg, void* stream) {
+  vol_slab_apply_kernel<<<vol_grid(S * n, H, W), dim3(kVX, kVY), 0,
+                          (cudaStream_t)stream>>>(
+      x, ur, cons, params, sq, p, ap, H, W, VolSlabs{S, n, he, d0, Dg});
   return (int)cudaGetLastError();
 }

@@ -200,6 +200,47 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
   }
 }
 
+// K15: A_hat p = sq . J^T J (sq . p) at the own rows of S extended slabs,
+// one slab per blockIdx.z (Slabs in warp_energy.cuh).  K4's apply without
+// the beta step, scs or the dot: the slab loop adds scs . p and takes the
+// dots outside (opt_tpu/parallel/stream_shard.py:313-329).
+__global__ void __launch_bounds__(kThreads)
+warp_slab_apply_kernel(const float* __restrict__ x,
+                       const float* __restrict__ ur,
+                       const float* __restrict__ cons,
+                       const float* __restrict__ mask,
+                       const float* __restrict__ params,
+                       const float* __restrict__ sq,
+                       const float* __restrict__ p, float* __restrict__ ap,
+                       int W, Slabs sl) {
+  const int sb = blockIdx.z;
+  const Grid g = sl.grid(sb, W);
+  const int j = blockIdx.x * kBX + threadIdx.x;
+  const int ic = blockIdx.y * kBY + threadIdx.y;
+  if (ic >= sl.n || j >= W) return;
+  const int HW = g.H * W;
+  // this slab's arrays
+  const float* xs = x + (size_t)sb * 3 * HW;
+  const float* urs = ur + (size_t)sb * 2 * HW;
+  const float* cs = cons + (size_t)sb * 2 * HW;
+  const float* ms = mask + (size_t)sb * HW;
+  const float* sqs = sq + (size_t)sb * 3 * HW;
+  const float* ps = p + (size_t)sb * 3 * HW;
+  const int i = sl.he + ic;
+  const int k = i * W + j;
+  float a[3] = {0.f, 0.f, 0.f};
+  if (ms[k] == 0.f)
+    hat_apply_at(g, i, j, xs, urs, cs, ms, params, sqs, nullptr,
+                 HatRead{ps, nullptr, sqs, 0.f, HW}, ps[2 * k],
+                 ps[2 * k + 1], ps[2 * HW + k], a);
+  // the own pixel in the local layout
+  const int ko = (sb * sl.n + ic) * W + j;
+  const int No = sl.S * sl.n * W;
+  ap[2 * ko] = a[0];
+  ap[2 * ko + 1] = a[1];
+  ap[2 * No + ko] = a[2];
+}
+
 }  // namespace
 
 // p_out, pprev, beta and scs may be null: with pprev null the operand is r
@@ -231,5 +272,20 @@ extern "C" int opt_warp_pipelined_sweep(
                                 (cudaStream_t)stream>>>(
       x, ur, cons, mask, params, sq, scs, b_hat, w_in, w_out, z, s, p, delta,
       r, alpha, beta, gamma_partials, dd_partials, q_partials, H, W);
+  return (int)cudaGetLastError();
+}
+
+// K15: the arrays hold S extended slabs of n + 2 he rows, slab s's row 0
+// at global row row0 + s * n of Hg; ap covers the own rows in the local
+// layout
+extern "C" int opt_warp_slab_apply(const float* x, const float* ur,
+                                   const float* cons, const float* mask,
+                                   const float* params, const float* sq,
+                                   const float* p, float* ap, int S, int n,
+                                   int he, int W, int row0, int Hg,
+                                   void* stream) {
+  warp_slab_apply_kernel<<<warp_grid(n, W, S), dim3(kBX, kBY), 0,
+                           (cudaStream_t)stream>>>(
+      x, ur, cons, mask, params, sq, p, ap, W, Slabs{S, n, he, row0, Hg});
   return (int)cudaGetLastError();
 }

@@ -26,6 +26,8 @@
 
 #pragma once
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -65,10 +67,20 @@ __device__ __forceinline__ void offset(int t, int* dw, int* dh, int* dd) {
   *dd = t == 4 ? 1 : (t == 5 ? -1 : 0);
 }
 
+// The D x H x W array a kernel indexes and where it lies in the global
+// volume: d0 is the global plane of the array's plane 0, Dg the global
+// depth.  inside() is both the array bound and the energy's InBounds,
+// which tests global planes: on an extended D slab of a sharded volume
+// (K8's offset mode, K16) a zero-filled halo plane past the global edge is
+// outside, not a neighbour that holds 0.  A whole volume (Vol{D, H, W}:
+// K6, K7) keeps d0 = 0 and an unbounded Dg.
 struct Vol {
   int D, H, W;
+  int d0 = 0;
+  int Dg = INT_MAX;
   __device__ bool inside(int d, int h, int w) const {
-    return d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W;
+    return d >= 0 && d < D && h >= 0 && h < H && w >= 0 && w < W &&
+           d0 + d >= 0 && d0 + d < Dg;
   }
   __device__ int idx(int d, int h, int w) const {
     return (d * H + h) * W + w;
@@ -176,6 +188,22 @@ __device__ __forceinline__ void vol_jtj_at(
   if (cons[3 * k] >= kFitValid)
     for (int c = 0; c < 3; ++c) aO[c] += w_fit * (w_fit * vO[c]);
 }
+
+// The planes of a launch over a batch of extended D slabs: S slabs of n
+// own planes with he halo planes before and after, slab s's array plane 0
+// at global plane d0 + s * n, in a volume of Dg planes.  blockIdx.z runs
+// over the S * n own planes, slab by slab.  Each slab's arrays are the
+// flat layout of an (n + 2 he) x H x W volume, one slab after another;
+// outputs cover the own planes only, in the local layout (Offset
+// (S, n, H, W, 3) then Angle (S, n, H, W, 3)).  A whole volume is
+// VolSlabs{1, D, 0, 0, D}.
+struct VolSlabs {
+  int S, n, he, d0, Dg;
+  __device__ int planes() const { return n + 2 * he; }
+  __device__ Vol vol(int s, int H, int W) const {
+    return Vol{planes(), H, W, d0 + s * n, Dg};
+  }
+};
 
 // D rides the grid's z extent, so a volume holds at most 65,535 planes; a
 // deeper one fails to launch (and its wrapper raises)

@@ -34,19 +34,27 @@ vol_linearize_kernel(const float* __restrict__ x,
                      const float* __restrict__ params,
                      const float* __restrict__ delta,
                      float* __restrict__ jtf, float* __restrict__ diag,
-                     float* __restrict__ cost_partials, int D, int H, int W,
-                     int mode) {
+                     float* __restrict__ cost_partials, int H, int W,
+                     VolSlabs sl, int mode) {
   __shared__ float sh[kVThreads];
-  const Vol g{D, H, W};
+  // blockIdx.z = sb * n + dc: own plane dc of slab sb, at array plane
+  // he + dc of its slab (a whole volume is one slab with no halo)
+  const int sb = blockIdx.z / sl.n, dc = blockIdx.z % sl.n;
+  const Vol g = sl.vol(sb, H, W);
   const int w = blockIdx.x * kVX + threadIdx.x;
   const int h = blockIdx.y * kVY + threadIdx.y;
-  const int d = blockIdx.z;
+  const int d = sl.he + dc;
   const int N = g.n();
+  // this slab's arrays
+  x += (size_t)sb * 6 * N;
+  ur += (size_t)sb * 3 * N;
+  cons += (size_t)sb * 3 * N;
+  if (delta != nullptr) delta += (size_t)sb * 6 * N;
   const float* angle = x + 3 * N;
   const bool derivs = mode == kFull;
   const bool model = mode == kModelCost;
   float cost = 0.f;
-  if (g.inside(d, h, w)) {
+  if (h < H && w < W) {
     const int k = g.idx(d, h, w);
     const float w_fit = params[0], w_reg = params[1];
     float O[3], A[3], dO[3] = {0.f, 0.f, 0.f}, dA[3] = {0.f, 0.f, 0.f};
@@ -120,11 +128,14 @@ vol_linearize_kernel(const float* __restrict__ x,
     }
     cost = 0.5f * ssq;
     if (derivs) {
+      // the own voxel in the local layout
+      const int ko = ((sb * sl.n + dc) * H + h) * W + w;
+      const int No = sl.S * sl.n * H * W;
       for (int c = 0; c < 3; ++c) {
-        jtf[3 * k + c] = jO[c];
-        jtf[3 * N + 3 * k + c] = jA[c];
-        diag[3 * k + c] = gO;
-        diag[3 * N + 3 * k + c] = gA[c];
+        jtf[3 * ko + c] = jO[c];
+        jtf[3 * No + 3 * ko + c] = jA[c];
+        diag[3 * ko + c] = gO;
+        diag[3 * No + 3 * ko + c] = gA[c];
       }
     }
   }
@@ -149,6 +160,26 @@ extern "C" int opt_vol_linearize(const float* x, const float* ur,
                                  int mode, void* stream) {
   vol_linearize_kernel<<<vol_grid(D, H, W), dim3(kVX, kVY), 0,
                          (cudaStream_t)stream>>>(
-      x, ur, cons, params, delta, jtf, diag, cost_partials, D, H, W, mode);
+      x, ur, cons, params, delta, jtf, diag, cost_partials, H, W,
+      VolSlabs{1, D, 0, 0, D}, mode);
+  return (int)cudaGetLastError();
+}
+
+// K8's global-offset mode over S extended D slabs (VolSlabs in
+// vol_energy.cuh): the arrays hold S slabs of n + 2 he planes, slab s's
+// plane 0 at global plane d0 + s * n of Dg; jtf and diag cover the own
+// planes in the local layout, the cost partials come slab by slab
+// (opt_vol_blocks(S * n, H, W) of them)
+extern "C" int opt_vol_slab_linearize(const float* x, const float* ur,
+                                      const float* cons, const float* params,
+                                      const float* delta, float* jtf,
+                                      float* diag, float* cost_partials,
+                                      int S, int n, int he, int H, int W,
+                                      int d0, int Dg, int mode,
+                                      void* stream) {
+  vol_linearize_kernel<<<vol_grid(S * n, H, W), dim3(kVX, kVY), 0,
+                         (cudaStream_t)stream>>>(
+      x, ur, cons, params, delta, jtf, diag, cost_partials, H, W,
+      VolSlabs{S, n, he, d0, Dg}, mode);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,8 @@
 
 #pragma once
 
+#include <climits>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,14 +52,40 @@ __device__ __forceinline__ float block_sum(float v, float* sh) {
   return out;
 }
 
+// blocks in z-major order: a slab launch's partials come slab by slab
 __device__ __forceinline__ int block_rank() {
-  return blockIdx.y * gridDim.x + blockIdx.x;
+  return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
 
+// The H x W array a kernel indexes and where it lies in the global grid:
+// row0 is the global row of the array's row 0, Hg the global height.
+// inside() is both the array bound and the energy's InBounds, which tests
+// global rows: on an extended slab of a sharded grid (K3's offset mode,
+// K15) a zero-filled halo row past the global edge is outside the grid,
+// not a neighbour that holds 0.  A whole grid (Grid{H, W}: K1, K4, K5,
+// K13) keeps row0 = 0 and an unbounded Hg, so there the two coincide.
 struct Grid {
   int H, W;
+  int row0 = 0;
+  int Hg = INT_MAX;
   __device__ bool inside(int i, int j) const {
-    return i >= 0 && i < H && j >= 0 && j < W;
+    return i >= 0 && i < H && j >= 0 && j < W && row0 + i >= 0 &&
+           row0 + i < Hg;
+  }
+};
+
+// The rows of a launch over a batch of extended slabs (one per
+// blockIdx.z): S slabs of n own rows with he halo rows above and below,
+// slab s's array row 0 at global row row0 + s * n, in a grid of Hg rows.
+// Each slab's arrays are the flat layout of an (n + 2 he) x W grid, one
+// slab after another; outputs cover the own rows only, in the local
+// layout (Offset (S, n, W, 2) then Angle (S, n, W, 1)).  A whole grid is
+// Slabs{1, H, 0, 0, H}.
+struct Slabs {
+  int S, n, he, row0, Hg;
+  __device__ int rows() const { return n + 2 * he; }
+  __device__ Grid grid(int s, int W) const {
+    return Grid{rows(), W, row0 + s * n, Hg};
   }
 };
 
@@ -137,8 +165,8 @@ __device__ __forceinline__ void jtj_at(
   *outA = aA;
 }
 
-dim3 warp_grid(int H, int W) {
-  return dim3((W + kBX - 1) / kBX, (H + kBY - 1) / kBY);
+dim3 warp_grid(int H, int W, int S = 1) {
+  return dim3((W + kBX - 1) / kBX, (H + kBY - 1) / kBY, S);
 }
 
 }  // namespace

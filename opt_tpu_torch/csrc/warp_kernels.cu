@@ -82,6 +82,13 @@ warp_jtj_apply_kernel(const float* __restrict__ x,
   if (thread_rank() == 0) partials[block_rank()] = s;
 }
 
+// K3 over S extended slabs (Slabs in warp_energy.cuh; a whole grid is one
+// slab with no halo): thread (ic, j) of slab blockIdx.z is own row ic, at
+// array row he + ic of its slab.  Neighbour reads stay inside the slab's
+// array (they reach one row; he >= 1 in the offset mode), and Grid's
+// inside() makes a halo row past the global edge no neighbour.  The cost
+// counts the residuals centred on own rows only, so a residual in a halo
+// row, which its own slab counts, is counted once.
 __global__ void __launch_bounds__(kThreads)
 warp_linearize_kernel(const float* __restrict__ x,
                       const float* __restrict__ ur,
@@ -90,28 +97,36 @@ warp_linearize_kernel(const float* __restrict__ x,
                       const float* __restrict__ params,
                       const float* __restrict__ delta,
                       float* __restrict__ jtf, float* __restrict__ diag,
-                      float* __restrict__ cost_partials, int H, int W,
+                      float* __restrict__ cost_partials, int W, Slabs sl,
                       int mode) {
   __shared__ float sh[kThreads];
-  const Grid g{H, W};
+  const int sb = blockIdx.z;
+  const Grid g = sl.grid(sb, W);
   const int j = blockIdx.x * kBX + threadIdx.x;
-  const int i = blockIdx.y * kBY + threadIdx.y;
-  const int HW = H * W;
-  const float* angle = x + 2 * HW;
+  const int ic = blockIdx.y * kBY + threadIdx.y;
+  const int HW = g.H * W;
+  // this slab's arrays
+  const float* xs = x + (size_t)sb * 3 * HW;
+  const float* urs = ur + (size_t)sb * 2 * HW;
+  const float* cs = cons + (size_t)sb * 2 * HW;
+  const float* ms = mask + (size_t)sb * HW;
+  const float* ds = delta != nullptr ? delta + (size_t)sb * 3 * HW : nullptr;
+  const float* angle = xs + 2 * HW;
   const bool derivs = mode == kFull;
   const bool model = mode == kModelCost;
   float cost = 0.f;
-  if (g.inside(i, j)) {
+  if (ic < sl.n && j < W) {
+    const int i = sl.he + ic;
     const int k = i * W + j;
     const float w_fit = params[0], w_reg = params[1];
-    const bool keep = mask[k] == 0.f;
-    const float ok0 = x[2 * k], ok1 = x[2 * k + 1];
-    const float uk0 = ur[2 * k], uk1 = ur[2 * k + 1];
+    const bool keep = ms[k] == 0.f;
+    const float ok0 = xs[2 * k], ok1 = xs[2 * k + 1];
+    const float uk0 = urs[2 * k], uk1 = urs[2 * k + 1];
     float dk0 = 0.f, dk1 = 0.f, dkA = 0.f;
     if (model) {
-      dk0 = delta[2 * k];
-      dk1 = delta[2 * k + 1];
-      dkA = delta[2 * HW + k];
+      dk0 = ds[2 * k];
+      dk1 = ds[2 * k + 1];
+      dkA = ds[2 * HW + k];
     }
     float sk, ck;
     sincosf(angle[k], &sk, &ck);
@@ -123,16 +138,16 @@ warp_linearize_kernel(const float* __restrict__ x,
         const int ni = i + kDY[t], nj = j + kDX[t];
         if (g.inside(ni, nj)) {
           const int n = ni * W + nj;
-          if (mask[n] == 0.f) {
-            const float e0 = uk0 - ur[2 * n], e1 = uk1 - ur[2 * n + 1];
-            float r0 = w_reg * ((ok0 - x[2 * n]) - (ck * e0 - sk * e1));
-            float r1 = w_reg * ((ok1 - x[2 * n + 1]) - (sk * e0 + ck * e1));
+          if (ms[n] == 0.f) {
+            const float e0 = uk0 - urs[2 * n], e1 = uk1 - urs[2 * n + 1];
+            float r0 = w_reg * ((ok0 - xs[2 * n]) - (ck * e0 - sk * e1));
+            float r1 = w_reg * ((ok1 - xs[2 * n + 1]) - (sk * e0 + ck * e1));
             float g0, g1;
             drot(sk, ck, e0, e1, &g0, &g1);
             if (model) {
               // r + J delta: the linear model of this residual
-              r0 += w_reg * ((dk0 - delta[2 * n]) - g0 * dkA);
-              r1 += w_reg * ((dk1 - delta[2 * n + 1]) - g1 * dkA);
+              r0 += w_reg * ((dk0 - ds[2 * n]) - g0 * dkA);
+              r1 += w_reg * ((dk1 - ds[2 * n + 1]) - g1 * dkA);
             }
             ssq += r0 * r0 + r1 * r1;
             if (derivs) {
@@ -152,13 +167,14 @@ warp_linearize_kernel(const float* __restrict__ x,
         const int mi = i - kDY[t], mj = j - kDX[t];
         if (g.inside(mi, mj)) {
           const int m = mi * W + mj;
-          if (mask[m] == 0.f) {
+          if (ms[m] == 0.f) {
             float sm, cm;
             sincosf(angle[m], &sm, &cm);
-            const float e0 = ur[2 * m] - uk0, e1 = ur[2 * m + 1] - uk1;
-            const float r0 = w_reg * ((x[2 * m] - ok0) - (cm * e0 - sm * e1));
+            const float e0 = urs[2 * m] - uk0, e1 = urs[2 * m + 1] - uk1;
+            const float r0 =
+                w_reg * ((xs[2 * m] - ok0) - (cm * e0 - sm * e1));
             const float r1 =
-                w_reg * ((x[2 * m + 1] - ok1) - (sm * e0 + cm * e1));
+                w_reg * ((xs[2 * m + 1] - ok1) - (sm * e0 + cm * e1));
             j0 -= w_reg * r0;
             j1 -= w_reg * r1;
             d0 += w_reg * w_reg;
@@ -167,9 +183,9 @@ warp_linearize_kernel(const float* __restrict__ x,
         }
       }
     }
-    if (cons[2 * k] >= 0.f && cons[2 * k + 1] >= 0.f) {
-      float f0 = w_fit * (ok0 - cons[2 * k]);
-      float f1 = w_fit * (ok1 - cons[2 * k + 1]);
+    if (cs[2 * k] >= 0.f && cs[2 * k + 1] >= 0.f) {
+      float f0 = w_fit * (ok0 - cs[2 * k]);
+      float f1 = w_fit * (ok1 - cs[2 * k + 1]);
       if (model) {
         f0 += w_fit * dk0;
         f1 += w_fit * dk1;
@@ -182,12 +198,15 @@ warp_linearize_kernel(const float* __restrict__ x,
     }
     if (keep) cost = 0.5f * ssq;
     if (derivs) {
-      jtf[2 * k] = j0;
-      jtf[2 * k + 1] = j1;
-      jtf[2 * HW + k] = jA;
-      diag[2 * k] = d0;
-      diag[2 * k + 1] = d1;
-      diag[2 * HW + k] = dA;
+      // the own pixel in the local layout
+      const int ko = (sb * sl.n + ic) * W + j;
+      const int No = sl.S * sl.n * W;
+      jtf[2 * ko] = j0;
+      jtf[2 * ko + 1] = j1;
+      jtf[2 * No + ko] = jA;
+      diag[2 * ko] = d0;
+      diag[2 * ko + 1] = d1;
+      diag[2 * No + ko] = dA;
     }
   }
   const float s = block_sum(cost, sh);
@@ -223,7 +242,30 @@ extern "C" int opt_warp_linearize(const float* x, const float* ur,
                                   int mode, void* stream) {
   warp_linearize_kernel<<<warp_grid(H, W), dim3(kBX, kBY), 0,
                           (cudaStream_t)stream>>>(
-      x, ur, cons, mask, params, delta, jtf, diag, cost_partials, H, W,
-      mode);
+      x, ur, cons, mask, params, delta, jtf, diag, cost_partials, W,
+      Slabs{1, H, 0, 0, H}, mode);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int opt_warp_slab_blocks(int S, int n, int W) {
+  const dim3 gr = warp_grid(n, W, S);
+  return (int)(gr.x * gr.y * gr.z);
+}
+
+// K3's global-offset mode over S extended slabs (Slabs in
+// warp_energy.cuh): the arrays hold S slabs of n + 2 he rows, slab s's row
+// 0 at global row row0 + s * n of Hg; jtf and diag cover the own rows in
+// the local layout, the cost partials come slab by slab
+extern "C" int opt_warp_slab_linearize(const float* x, const float* ur,
+                                       const float* cons, const float* mask,
+                                       const float* params,
+                                       const float* delta, float* jtf,
+                                       float* diag, float* cost_partials,
+                                       int S, int n, int he, int W, int row0,
+                                       int Hg, int mode, void* stream) {
+  warp_linearize_kernel<<<warp_grid(n, W, S), dim3(kBX, kBY), 0,
+                          (cudaStream_t)stream>>>(
+      x, ur, cons, mask, params, delta, jtf, diag, cost_partials, W,
+      Slabs{S, n, he, row0, Hg}, mode);
   return (int)cudaGetLastError();
 }

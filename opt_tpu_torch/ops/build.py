@@ -67,6 +67,11 @@ SIGNATURES = {
     "opt_resident_warp": [_P] * 12 + [_I] * 4 + [_P],
     "opt_resident_poisson": [_P] * 7 + [_I] * 5 + [_P],
     "opt_stencil_apply": [_P, _P] + [_I] * 4 + [_P] * 4,
+    "opt_warp_slab_blocks": [_I] * 3,
+    "opt_warp_slab_linearize": [_P] * 9 + [_I] * 7 + [_P],
+    "opt_warp_slab_apply": [_P] * 8 + [_I] * 6 + [_P],
+    "opt_vol_slab_linearize": [_P] * 8 + [_I] * 8 + [_P],
+    "opt_vol_slab_apply": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 _lib = None

@@ -431,6 +431,7 @@ class GraphOperator:
     K2's hat mode."""
 
     variant = "classic"
+    dot = staticmethod(torch.dot)
 
     def __init__(self, funcs, data, layout, uses_lambda, meta):
         self.funcs = funcs

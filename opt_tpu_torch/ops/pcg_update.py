@@ -28,14 +28,15 @@ import torch
 from . import build
 
 
-def pcg_update_plain(alpha, p, ap, delta, r, pre, b=None):
+def pcg_update_plain(alpha, p, ap, delta, r, pre, b=None, dot=torch.dot):
     """Plain torch Step2.  Returns (delta', r', z', rz, q); q is None for
-    GN (no b), and z' is r' when pre is None."""
+    GN (no b), and z' is r' when pre is None.  dot takes the two sums (a
+    sharded operator's sums over the mesh)."""
     delta = delta + alpha * p
     r = r - alpha * ap
     z = r if pre is None else pre * r
-    rz = torch.dot(z, r)
-    q = None if b is None else 0.5 * torch.dot(delta, r + b)
+    rz = dot(z, r)
+    q = None if b is None else 0.5 * dot(delta, r + b)
     return delta, r, z, rz, q
 
 

@@ -71,12 +71,21 @@ def _shift(a, dw, dh, dd):
                           max(0, dw):max(0, dw) + W]
 
 
-def _inbounds(D, H, W, dw, dh, dd, device):
-    """(D, H, W): the neighbour at offset (dw, dh, dd) is in the volume."""
+def _inbounds(D, H, W, dw, dh, dd, device, planes=None):
+    """(D, H, W): the neighbour at offset (dw, dh, dd) is in the volume.
+    planes = (d0, Dg) places the array at global plane d0 of a volume of
+    Dg planes (an extended D slab, ops/slab_cuda.py): a residual centred
+    or reading past the global edge is then none."""
     ar = lambda n, o: ((torch.arange(n, device=device) + o >= 0)
                        & (torch.arange(n, device=device) + o < n))
-    return (ar(D, dd)[:, None, None] & ar(H, dh)[None, :, None]
-            & ar(W, dw)[None, None, :])
+    inb = (ar(D, dd)[:, None, None] & ar(H, dh)[None, :, None]
+           & ar(W, dw)[None, None, :])
+    if planes is not None:
+        d0, Dg = planes
+        g = torch.arange(D, device=device) + d0
+        inb = inb & ((g >= 0) & (g < Dg) & (g + dd >= 0)
+                     & (g + dd < Dg))[:, None, None]
+    return inb
 
 
 def _split(v, shape):
@@ -128,8 +137,9 @@ def _arap_jv(w_reg, G, vO, nO, vA):
     return w_reg * ((vO - nO) - (G * vA[..., :, None]).sum(-2))
 
 
-def vol_jtj_apply_plain(x, p, ur, cons, params, ctc=None):
-    """(J^T J p + ctc p, <p, Ap>) at linearization point x."""
+def vol_jtj_apply_plain(x, p, ur, cons, params, ctc=None, planes=None):
+    """(J^T J p + ctc p, <p, Ap>) at linearization point x; planes as in
+    _inbounds."""
     shape = ur.shape[:3]
     w_fit, w_reg = params[0], params[1]
     _, A = _split(x, shape)
@@ -139,7 +149,7 @@ def vol_jtj_apply_plain(x, p, ur, cons, params, ctc=None):
     accO = torch.zeros_like(pO)
     accA = torch.zeros_like(pA)
     for o in OFFSETS:
-        valid = _inbounds(*shape, *o, p.device)[..., None]
+        valid = _inbounds(*shape, *o, p.device, planes)[..., None]
         G = _drot(t, ur - _shift(ur, *o))
         jp = torch.where(valid, _arap_jv(w_reg, G, pO, _shift(pO, *o), pA),
                          zero)
@@ -157,9 +167,26 @@ def vol_linearize_plain(x, ur, cons, params, cost_only=False, delta=None):
     """(J^T F, diag(J^T J), cost) at x; J^T F and diag are None when
     cost_only.  Given delta, the cost is LM's model cost
     0.5 sum (F + J delta)^2 at x, and J^T F and diag are None."""
+    derivs = not (cost_only or delta is not None)
+    jO, jA, gO, gA, ssq = linearize_fields(x, ur, cons, params, derivs,
+                                           delta)
+    cost = 0.5 * torch.sum(ssq)
+    if not derivs:
+        return None, None, cost
+    shape = ur.shape[:3]
+    jtf = torch.cat((jO.reshape(-1), jA.reshape(-1)))
+    diag = torch.cat((gO[..., None].expand(*shape, 3).reshape(-1),
+                      gA.reshape(-1)))
+    return jtf, diag, cost
+
+
+def linearize_fields(x, ur, cons, params, derivs, delta=None, planes=None):
+    """Per voxel: J^T F as (Offset, Angle) parts (D, H, W, 3), diag(J^T J)
+    as the Offset channels' common value (D, H, W) and the Angle part,
+    None unless derivs, and the sum of squared residuals centred there
+    (D, H, W), of F + J delta given delta; planes as in _inbounds."""
     shape = ur.shape[:3]
     w_fit, w_reg = params[0], params[1]
-    cost_only = cost_only or delta is not None
     O, A = _split(x, shape)
     if delta is not None:
         dO, dA = _split(delta, shape)
@@ -170,7 +197,7 @@ def vol_linearize_plain(x, ur, cons, params, cost_only=False, delta=None):
     gO = torch.zeros(shape, dtype=x.dtype, device=x.device)
     gA = torch.zeros_like(A)
     for o in OFFSETS:
-        inb = _inbounds(*shape, *o, x.device)
+        inb = _inbounds(*shape, *o, x.device, planes)
         v3 = inb[..., None]
         back = tuple(-c for c in o)
         e = ur - _shift(ur, *o)
@@ -180,7 +207,7 @@ def vol_linearize_plain(x, ur, cons, params, cost_only=False, delta=None):
             r = r + torch.where(v3, _arap_jv(w_reg, G, dO, _shift(dO, *o),
                                              dA), zero)
         ssq = ssq + (r * r).sum(-1)
-        if cost_only:
+        if not derivs:
             continue
         G = torch.where(v3[..., None], -w_reg * _drot(t, e), zero)
         jO = jO + w_reg * r - _shift(w_reg * r, *back)
@@ -194,15 +221,11 @@ def vol_linearize_plain(x, ur, cons, params, cost_only=False, delta=None):
         f = f + w_fit * dO
     f = torch.where(fit, f, zero)
     ssq = ssq + (f * f).sum(-1)
-    cost = 0.5 * torch.sum(ssq)
-    if cost_only:
-        return None, None, cost
+    if not derivs:
+        return None, None, None, None, ssq
     jO = jO + w_fit * f
     gO = gO + torch.where(fit[..., 0], w_fit * w_fit, zero)
-    jtf = torch.cat((jO.reshape(-1), jA.reshape(-1)))
-    diag = torch.cat((gO[..., None].expand(*shape, 3).reshape(-1),
-                      gA.reshape(-1)))
-    return jtf, diag, cost
+    return jO, jA, gO, gA, ssq
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +280,7 @@ class VolOperator:
     sq = 1 (ops/stream3d_cuda.py)."""
 
     pcg_backend = None
+    dot = staticmethod(torch.dot)
 
     def __init__(self, data):
         im = data["images"]

@@ -65,13 +65,20 @@ def _shift(a, dx, dy):
                           max(0, dx):max(0, dx) + W]
 
 
-def _valid(keep, mask2, dx, dy):
+def _valid(keep, mask2, dx, dy, rows=None):
     """Validity of the reg residual centred at each pixel for offset
-    (dx, dy): the neighbour is in bounds and neither pixel is masked."""
+    (dx, dy): the neighbour is in bounds and neither pixel is masked.
+    rows = (row0, Hg) places the array at global row row0 of a grid of Hg
+    rows (an extended slab, ops/slab_cuda.py): a residual centred or
+    reading past the global edge is then none."""
     H, W = keep.shape
     i = torch.arange(H, device=keep.device)[:, None] + dy
     j = torch.arange(W, device=keep.device)[None, :] + dx
     inb = (i >= 0) & (i < H) & (j >= 0) & (j < W)
+    if rows is not None:
+        row0, Hg = rows
+        g = torch.arange(H, device=keep.device)[:, None] + row0
+        inb = inb & (g >= 0) & (g < Hg) & (g + dy >= 0) & (g + dy < Hg)
     return inb & keep & (_shift(mask2, dx, dy) == 0)
 
 
@@ -91,8 +98,10 @@ def _flat_keep(keep):
                       keep.reshape(-1)))
 
 
-def warp_jtj_apply_plain(x, p, ur, cons, mask, params, ctc=None):
-    """(mask(J^T J p + ctc p), <p, Ap>) at linearization point x."""
+def warp_jtj_apply_plain(x, p, ur, cons, mask, params, ctc=None,
+                         rows=None):
+    """(mask(J^T J p + ctc p), <p, Ap>) at linearization point x; rows as
+    in _valid."""
     H, W = mask.shape[:2]
     w_fit, w_reg = params[0], params[1]
     mask2 = mask.view(H, W)
@@ -104,7 +113,7 @@ def warp_jtj_apply_plain(x, p, ur, cons, mask, params, ctc=None):
     accA = torch.zeros_like(pA)
     zero = torch.zeros((), dtype=p.dtype, device=p.device)
     for dx, dy in OFFSETS:
-        valid = _valid(keep, mask2, dx, dy)[..., None]
+        valid = _valid(keep, mask2, dx, dy, rows)[..., None]
         G = _drot(s, c, ur - _shift(ur, dx, dy))
         jp = w_reg * ((pO - _shift(pO, dx, dy)) - G * pA[..., None])
         jp = torch.where(valid, jp, zero)
@@ -124,11 +133,26 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False,
     """(J^T F, diag(J^T J), masked cost) at x; J^T F and diag are None
     when cost_only.  Given delta, the cost is LM's model cost
     0.5 sum mask(F + J delta)^2 at x, and J^T F and diag are None."""
+    derivs = not (cost_only or delta is not None)
+    jO, jA, gO, gA, ssq = linearize_fields(x, ur, cons, mask, params,
+                                           derivs, delta)
+    cost = 0.5 * torch.sum(ssq)
+    if not derivs:
+        return None, None, cost
+    jtf = torch.cat((jO.reshape(-1), jA.reshape(-1)))
+    diag = torch.cat((gO.reshape(-1), gA.reshape(-1)))
+    return jtf, diag, cost
+
+
+def linearize_fields(x, ur, cons, mask, params, derivs, delta=None,
+                     rows=None):
+    """Per pixel: J^T F and diag(J^T J) as (Offset (H, W, 2), Angle (H, W))
+    parts, None unless derivs, and the masked sum of squared residuals
+    centred there (H, W), of F + J delta given delta; rows as in _valid."""
     H, W = mask.shape[:2]
     w_fit, w_reg = params[0], params[1]
     mask2 = mask.view(H, W)
     keep = mask2 == 0
-    cost_only = cost_only or delta is not None
     O, A = _split(x, H, W)
     if delta is not None:
         dO, dA = _split(delta, H, W)
@@ -140,7 +164,7 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False,
     gO = torch.zeros_like(O)
     gA = torch.zeros_like(A)
     for dx, dy in OFFSETS:
-        valid = _valid(keep, mask2, dx, dy)
+        valid = _valid(keep, mask2, dx, dy, rows)
         v3 = valid[..., None]
         e = ur - _shift(ur, dx, dy)
         rot = torch.stack((c * e[..., 0] - s * e[..., 1],
@@ -151,7 +175,7 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False,
                           - _drot(s, c, e) * dA[..., None])
             r = r + torch.where(v3, jd, zero)
         ssq = ssq + (r * r).sum(-1)
-        if cost_only:
+        if not derivs:
             continue
         G = torch.where(v3, -w_reg * _drot(s, c, e), zero)
         jO = jO + w_reg * r - _shift(w_reg * r, -dx, -dy)
@@ -164,15 +188,12 @@ def warp_linearize_plain(x, ur, cons, mask, params, cost_only=False,
     if delta is not None:
         f = f + w_fit * dO
     f = torch.where(fit, f, zero)
-    ssq = ssq + (f * f).sum(-1)
-    cost = 0.5 * torch.sum(torch.where(keep, ssq, zero))
-    if cost_only:
-        return None, None, cost
+    ssq = torch.where(keep, ssq + (f * f).sum(-1), zero)
+    if not derivs:
+        return None, None, None, None, ssq
     jO = jO + w_fit * f
     gO = gO + torch.where(fit, w_fit * w_fit, zero)
-    jtf = torch.cat((jO.reshape(-1), jA.reshape(-1)))
-    diag = torch.cat((gO.reshape(-1), gA.reshape(-1)))
-    return jtf, diag, cost
+    return jO, jA, gO, gA, ssq
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +272,7 @@ class WarpOperator:
     bind."""
 
     pcg_backend = None
+    dot = staticmethod(torch.dot)
 
     def __init__(self, data):
         im = data["images"]

@@ -44,6 +44,7 @@ from ..compile.plan_fns import FuncsOperator, ProblemFunctions
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
 from ..ops import graph_cuda, stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
+from ..parallel.dispatch import solve_sharded_auto
 from ..solver.core import (
     SOLVER_PARAMETER_DEFAULTS,
     Layout,
@@ -425,14 +426,25 @@ class Plan:
             print(f"final cost={self.final_cost():.16f}")
         self.timer.evaluate()
 
-    def solve(self, inputs, engine="auto"):
+    def solve(self, inputs, engine="auto", mesh=None):
         """Opt_ProblemSolve: init and the whole outer loop with no host
         synchronization inside; returns the final cost.
 
         engine: "auto" (see _pick_engine), "torch", "cuda", "stream",
         "stream3d" or "graph".
+        mesh: a chain of slabs from parallel.mesh.make_mesh; the solve then
+        runs sharded over it (parallel/dispatch.py), engine "auto",
+        "halo", "stream" or "stream3d", and leaves the unknowns readable
+        in the global layout.
         A kernel error propagates: there is no fallback to another
         engine."""
+        if mesh is not None:
+            with self.timer.event("solve"):
+                solve_sharded_auto(self, inputs, mesh, engine)
+                self._sync()
+            self._cleaned = False
+            self._cleanup()
+            return self.final_cost()
         x = self._bind_engine(engine, inputs)
         with self.timer.event("solve"):
             self._state = self._full_solve_fn(x, self._op, self.solver_params)

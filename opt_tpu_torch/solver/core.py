@@ -22,13 +22,18 @@ one operator seam, an object with
   mask(v)          -> v with the excluded unknowns zeroed
   apply(p, ctc)    -> (mask(J^T J p + ctc p), <p, Ap>); ctc None for GN
   update           -> the PCG Step2, pcg_update_plain's contract
+  dot(a, b)        -> 0-d <a, b>: torch.dot on one device; the sharded
+                      operators (parallel/) sum their slabs' partials over
+                      the mesh (opt_tpu's SolverConfig.psum_axis, :188-194),
+                      as their cost, model_cost and apply's <p, Ap> do
   model_cost(d)    -> 0-d 0.5 * sum of masked (F + J d)^2 (LM)
   pcg_backend      -> None, or a callable (sq, scs, b_hat, sp) -> d_hat
                       that solves S (J^T J [+ CtC]) S d_hat = b_hat,
                       S = diag(sq), in place of the PCG loop here
                       (opt_tpu's SolverConfig.pcg_backend, :145-153)
 The plain engine's operator is compile/plan_fns.FuncsOperator; the CUDA
-engines' are ops/warp_cuda.WarpOperator and ops/stream_cuda.StreamOperator.
+engines' are ops/warp_cuda.WarpOperator and ops/stream_cuda.StreamOperator;
+a solve over a mesh runs the same loop on parallel/'s sharded operators.
 
 Every vector is one flat buffer over all unknowns (Layout gives the
 per-unknown views).  Scalars (alpha, beta, <r, z>) stay 0-d tensors on the
@@ -178,8 +183,8 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
         z = q = s = p = torch.zeros_like(r)
         gamma_prev = alpha_prev = None
         for i in range(int(sp["lIterations"])):
-            gamma = torch.dot(r, u)
-            dd = torch.dot(w, u)
+            gamma = op.dot(r, u)
+            dd = op.dot(w, u)
             m = M(w)
             n, _ = op.apply(m)
             if i == 0:
@@ -208,7 +213,7 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
         period = int(sp["residual_reset_period"])
         q_tol = float(sp["q_tolerance"])
         p = op.mask(pre * r)
-        an = torch.dot(r, p)
+        an = op.dot(r, p)
         delta = torch.zeros_like(r)
         Q0 = torch.zeros((), dtype=r.dtype, device=r.device)
         brk = torch.zeros((), dtype=torch.bool, device=r.device)
@@ -224,8 +229,8 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
                 delta = delta + alpha * p
                 r = b - op.apply(delta, ctc)[0]
                 z = op.mask(pre * r)
-                bn = torch.dot(z, r)
-                q = 0.5 * torch.dot(delta, r + b)
+                bn = op.dot(z, r)
+                q = 0.5 * op.dot(delta, r + b)
             else:
                 delta, r, z, bn, q = op.update(
                     alpha, p, ap, delta, r, pre, b if lm else None)

@@ -588,3 +588,135 @@ def test_resident_solvers_agree_with_the_cpu(dev):
         if ("cuda", "cg") in costs:
             assert costs["cuda", "cg"] == pytest.approx(costs["cpu", "cg"],
                                                         rel=1e-5)
+
+
+# the slice-6 kernels (ops/slab_cuda.py) on ragged slabs: 37 columns and
+# 7 own rows (2-D), 3 own planes of 37x23 (3-D) -- neither a multiple of
+# the 32x8 blocks -- three slabs (the first, an interior one, the last) in
+# one launch, and each alone with its own global offset (a rank's batch
+# in the group form)
+SLABS = 3
+
+
+def _warp_slabs(dev):
+    return chip_smoke.slab_operands(torch, 37, 7 * SLABS, SLABS, dev,
+                                    seed=8)
+
+
+def _alone(ops, s, g):
+    """Slab s of a batch as a batch of its own."""
+    n, he, row0, total = g
+    return [a[s:s + 1] for a in ops], (n, he, row0 + s * n, total)
+
+
+def test_warp_slab_kernels_match_plain(dev):
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    x, ur, cons, mask, params, t, g = _warp_slabs(dev)
+    for s in (None, 0, 1, 2):
+        (xs, urs, cs, ms, sq, p, d), gs = (
+            ((x, ur, cons, mask, t["sq"], t["p"], t["delta"]), g)
+            if s is None else
+            _alone((x, ur, cons, mask, t["sq"], t["p"], t["delta"]), s, g))
+        n0 = sc.warp_slab_apply.launches
+        _close([sc.warp_slab_apply(xs, urs, cs, ms, params, sq, p, gs)],
+               [sc.warp_slab_apply_plain(xs, urs, cs, ms, params, sq, p,
+                                         gs)])
+        assert sc.warp_slab_apply.launches == n0 + 1
+        for kw in ({}, {"cost_only": True}, {"delta": d}):
+            _close(sc.warp_slab_linearize(xs, urs, cs, ms, params, gs, **kw),
+                   sc.warp_slab_linearize_plain(xs, urs, cs, ms, params, gs,
+                                                **kw))
+
+
+def test_vol_slab_kernels_match_plain(dev):
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    x, ur, cons, params, t, g = chip_smoke.vol_slab_operands(
+        torch, 37, 23, 3 * SLABS, SLABS, dev, seed=9)
+    for s in (None, 0, 1, 2):
+        (xs, urs, cs, sq, p, d), gs = (
+            ((x, ur, cons, t["sq"], t["p"], t["delta"]), g) if s is None
+            else _alone((x, ur, cons, t["sq"], t["p"], t["delta"]), s, g))
+        n0 = sc.vol_slab_apply.launches
+        _close([sc.vol_slab_apply(xs, urs, cs, params, sq, p, gs)],
+               [sc.vol_slab_apply_plain(xs, urs, cs, params, sq, p, gs)])
+        assert sc.vol_slab_apply.launches == n0 + 1
+        for kw in ({}, {"cost_only": True}, {"delta": d}):
+            _close(sc.vol_slab_linearize(xs, urs, cs, params, gs, **kw),
+                   sc.vol_slab_linearize_plain(xs, urs, cs, params, gs,
+                                               **kw))
+
+
+def test_one_slab_past_both_edges_is_the_whole_grid(dev):
+    """One slab whose halo lies past both global edges: K3's offset mode
+    gives the whole-grid K3 bit for bit (one kernel, the global bounds
+    doing what the array bounds do on a whole grid), and K15 K4's A_hat p
+    (two kernels, compiled apart: to their rounding).  K1, K4, K5 and K13
+    keep offset 0: the tests above hold them unchanged."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    W, H = 37, 23
+    x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
+                                                              dev, seed=8)
+    pad = lambda a: torch.nn.functional.pad(
+        a.view(H, W, -1), (0, 0, 0, 0, 2, 2)).unsqueeze(0).contiguous()
+    flat = lambda v: torch.cat([pad(v[:2 * H * W]).reshape(1, -1),
+                                pad(v[2 * H * W:]).reshape(1, -1)], dim=1)
+    g = (H, 2, -2, H)
+    slab = (flat(x), pad(ur), pad(cons), pad(mask), params)
+    for kw in ({}, {"cost_only": True}, {"delta": t["delta"]}):
+        want = warp_cuda.warp_linearize(x, ur, cons, mask, params, **kw)
+        if "delta" in kw:
+            kw = {"delta": flat(kw["delta"])}
+        got = sc.warp_slab_linearize(*slab, g, **kw)
+        assert float(got[2][0]) == pytest.approx(float(want[2]), rel=1e-6)
+        for a, b in zip(got[:2], want[:2]):
+            assert (a is None and b is None) or torch.equal(a, b)
+    ap = sc.warp_slab_apply(*slab, flat(t["sq"]), flat(t["p"]), g)
+    want = stream_cuda.warp_hat_apply(x, ur, cons, mask, params, t["sq"],
+                                      None, t["p"])[1]
+    _close([ap], [want])
+
+
+def _mesh_plan(energy, kind, dims, n_outer=3, n_linear=30):
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+
+    st = opt_tpu_torch.NewState(device="cuda")
+    plan = st.problem_plan(st.problem_define(getattr(energies, energy),
+                                             kind), list(dims))
+    plan.set_solver_parameter("nIterations", n_outer)
+    plan.set_solver_parameter("lIterations", n_linear)
+    return plan
+
+
+@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
+def test_sharded_engines_agree_on_the_card(dev, kind):
+    """Plan.solve(mesh=make_mesh(4)) on the card against the single-card
+    engines (2e-5 for 2-D, 5e-4 for volumes), repeated solves bit for bit,
+    and the unknowns back in the global layout."""
+    from opt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(4, device="cuda")
+    plan = _mesh_plan("image_warping", kind, (96, 64))
+    inputs = chip_smoke.warp_inputs(96, 64, seed=6)
+    inputs["Mask"][15, 30] = inputs["Mask"][16, 31] = 1.0  # a slab edge
+    cost = plan.solve(inputs, engine="stream", mesh=mesh)
+    x = plan.unknowns()
+    assert plan.solve(inputs, engine="stream", mesh=mesh) == cost
+    want = plan.solve(inputs, engine="stream")
+    assert np.isfinite(cost) and cost == pytest.approx(want, rel=2e-5)
+    # GN's pipelined recurrences amplify the sums' other order: the
+    # unknowns part by up to 6.4e-4 (of 5.2) here on the CPU's plain path
+    for n, v in plan.unknowns().items():
+        np.testing.assert_allclose(x[n], v, rtol=1e-3, atol=1e-3)
+    inputs = chip_smoke.volume_inputs(12)
+    vol = _vol_plan(kind, (12, 12, 12))
+    cost = vol.solve(inputs, engine="stream3d", mesh=mesh)
+    assert vol.solve(inputs, engine="stream3d", mesh=mesh) == cost
+    assert cost == pytest.approx(vol.solve(inputs, engine="stream3d"),
+                                 rel=5e-4)
+    halo = plan.solve(chip_smoke.warp_inputs(96, 64, seed=6), engine="halo",
+                      mesh=mesh)
+    assert np.isfinite(halo)

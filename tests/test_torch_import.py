@@ -28,6 +28,10 @@ def test_import_loads_no_jax():
         "from opt_tpu_torch.ops.stream_cuda import StreamSolver\n"
         "import opt_tpu_torch.compile.evaluate\n"
         "import opt_tpu_torch.compile.plan_fns\n"
+        "import opt_tpu_torch.ops.slab_cuda\n"
+        "import opt_tpu_torch.parallel.mesh, opt_tpu_torch.parallel.halo\n"
+        "import opt_tpu_torch.parallel.stream_shard\n"
+        "import opt_tpu_torch.parallel.dispatch\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'opt_tpu'))\n"
         "assert not bad, bad\n"
@@ -117,3 +121,17 @@ def test_coop_blocks_raises_on_a_failed_query(monkeypatch):
     assert build.coop_blocks(264, "k") == 264
     with pytest.raises(RuntimeError, match="k: CUDA error 82"):
         build.coop_blocks(-82, "k")
+
+
+def test_slice6_kernels_are_bound():
+    """K15, K16 and the offset modes of K3 and K8 have ctypes signatures,
+    and K15's and K16's wrappers count launches; importing them needs no
+    nvcc and no card."""
+    from opt_tpu_torch.ops import slab_cuda
+
+    for name in ("opt_warp_slab_blocks", "opt_warp_slab_linearize",
+                 "opt_warp_slab_apply", "opt_vol_slab_linearize",
+                 "opt_vol_slab_apply"):
+        assert name in build.SIGNATURES
+    for k in (slab_cuda.warp_slab_apply, slab_cuda.vol_slab_apply):
+        assert k.launches >= 0
