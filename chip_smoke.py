@@ -55,7 +55,15 @@ Phases (any failure raises and the exit code is non-zero):
      edges): K9 graph_gather (f32 and f64), K10 graph_scatter (f32 and
      f64), K11 graph_hat_apply (GN and LM, with and without p_prev), with
      the one PyTorch call that computes K9's and K10's function
-     (index_select, index_add_) timed beside them;
+     (index_select, index_add_) timed beside them and each kernel's share
+     of its bound; K9 bit for bit its plain version and K10 bit for bit
+     the edge-order sum on the CPU (and itself on a second call) at
+     C = 1-8 and 11, f32 and f64, aligned and unaligned bases; the
+     profiler's device time per launch of K9, K10,
+     index_select and index_add_; and at 10k the host microseconds per
+     call of each layer (the C entry, the wrapper, the torch.library
+     operator, gather() alone and under torch.func.vjp, its transpose)
+     beside the library calls', with the profiler's CPU rows of one call;
  12. run the slice-4 paths, arap_mesh_deformation 8x100 on bench.aux_arap's
      mesh (10,404 vertices) with non-rigid constraint offsets
      (arap_inputs), each with its own launch counts, its final cost
@@ -304,7 +312,7 @@ KERNEL_SYMBOLS = (
     "warp_jtj_apply_kernel", "warp_linearize_kernel", "pcg_update_kernel",
     "warp_hat_apply_kernel", "warp_pipelined_sweep_kernel",
     "vol_hat_apply_kernel", "vol_pipelined_sweep_kernel",
-    "vol_linearize_kernel", "graph_gather_kernel", "graph_scatter_kernel",
+    "vol_linearize_kernel", "graph_gather_", "graph_scatter_",
     "graph_hat_apply_kernel", "pcg_kernel<", "stencil_kernel",
     "warp_slab_apply_kernel", "vol_slab_apply_kernel")
 
@@ -893,6 +901,20 @@ def graph_kernel_operands(torch, w, dev, seed=1):
     return op.tables, data, t
 
 
+def scatter_in_edge_order(torch, x, order, rowptr):
+    """K10's function as K10 sums it, on the CPU: out[w] = ((0 + x[e_1]) +
+    x[e_2]) + ... over vertex w's run e_1, e_2, ... of the CSR incidence
+    (order, rowptr), one rank of every run at a time."""
+    x, order, rowptr = (t.cpu().long() if t.dtype == torch.int32 else t.cpu()
+                        for t in (x, order, rowptr))
+    deg = rowptr[1:] - rowptr[:-1]
+    out = torch.zeros((deg.numel(),) + tuple(x.shape[1:]), dtype=x.dtype)
+    for k in range(int(deg.max()) if deg.numel() else 0):
+        w = torch.nonzero(deg > k).squeeze(1)
+        out[w] += x[order[rowptr[w] + k]]
+    return out
+
+
 def check_graph_kernels(torch, dev, w, reps):
     """Phase 11: the slice-4 kernels and modes vs their plain versions on
     a w x w mesh.  name -> timings (check_cases), with library_ms for K9
@@ -948,7 +970,184 @@ def check_graph_kernels(torch, dev, w, reps):
     for name, fn in library.items():
         out[name]["library_ms"] = cuda_ms(torch, fn, reps)
         print(f"  library {name}: {out[name]['library_ms'] * 1e3:.1f} us")
+    for name in library:
+        print(f"  {name}: {100 * out[name]['bound_ms'] / out[name]['ms']:.1f}"
+              f"% of its bound ({out[name]['ms'] * 1e3:.1f} us against "
+              f"{out[name]['bound_ms'] * 1e3:.1f} us)")
+    v32 = torch.as_tensor(rng.randn(n_verts, 6).astype(np.float32),
+                          device=dev)
+    e32 = torch.as_tensor(rng.randn(n_edges, 6).astype(np.float32),
+                          device=dev)
+    if w == MESH:  # every width, aligned and not
+        check_graph_exact(torch, dev, v0, order, rowptr, n_verts,
+                          (1, 2, 3, 4, 5, 6, 7, 8, 11), (0, 1))
+    else:  # the widths the 262k path runs
+        check_graph_exact(torch, dev, v0, order, rowptr, n_verts, (3, 6),
+                          (0,))
+    idx0 = idx[0].contiguous()
+    out_v = torch.zeros_like(v32)
+    device_us_per_launch(torch, {
+        "graph_gather(f32)": lambda: gc.graph_gather(v32, idx),
+        "graph_gather(f32) one slot, as on the path": lambda: gc.graph_gather(
+            v32, idx0),
+        "index_select": lambda: torch.index_select(v32, 0, idx.reshape(-1)),
+        "graph_scatter(f32)": lambda: gc.graph_scatter(e32, v0, order,
+                                                       rowptr),
+        "index_add_": lambda: out_v.index_add_(0, v0, e32),
+    }, f"{w}x{w} mesh")
+    if w == MESH:
+        graph_host_times(torch, gc, v32, e32, idx, idx0, v0, order, rowptr)
     return out
+
+
+def check_graph_exact(torch, dev, v0, order, rowptr, n_verts, channels,
+                      offsets):
+    """K9 bit for bit its plain version and K10 bit for bit the edge-order
+    sum on the CPU, at each channel count C, f32 and f64, with the blocks' bases at each element offset (1: not aligned to a
+    row's vector, the generic kernels); K10 equal to itself on a second
+    call."""
+    from opt_tpu_torch.ops import graph_cuda as gc
+
+    rng = np.random.RandomState(5)
+    idx = torch.stack([v0, v0.flip(0)])
+    n_edges = v0.numel()
+    checked = 0
+    for dt in (torch.float32, torch.float64):
+        for c in channels:
+            v = torch.as_tensor(rng.randn(n_verts * c + 1), device=dev).to(dt)
+            x = torch.as_tensor(rng.randn(n_edges * c + 1), device=dev).to(dt)
+            for off in offsets:
+                vv = v[off:off + n_verts * c].view(n_verts, c)
+                xx = x[off:off + n_edges * c].view(n_edges, c)
+                want = gc.graph_gather_plain(vv, idx)
+                if not torch.equal(gc.graph_gather(vv, idx), want):
+                    raise AssertionError(f"graph_gather C={c} {dt} offset "
+                                         f"{off} differs from its plain "
+                                         "version")
+                got = gc.graph_scatter(xx, v0, order, rowptr)
+                want = scatter_in_edge_order(torch, xx, order, rowptr)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(
+                        f"graph_scatter C={c} {dt} offset {off} differs "
+                        "from the edge-order sum")
+                if not torch.equal(got, gc.graph_scatter(xx, v0, order,
+                                                         rowptr)):
+                    raise AssertionError(f"graph_scatter C={c} {dt} offset "
+                                         f"{off} differs between calls")
+                checked += 1
+    print(f"  graph_gather and graph_scatter exact: {checked} cases (C in "
+          f"{channels}, f32 and f64, base offsets {offsets})")
+
+
+def device_us_per_launch(torch, fns, label, n=20):
+    """Device microseconds per launch of each kernel that each fn
+    launches, from torch.profiler over n calls, after n calls in the
+    profiler's warm-up step."""
+
+    def calls(fn):
+        for _ in range(n):
+            fn()
+
+    for name, fn in fns.items():
+        rows = device_rows(torch, lambda: calls(fn), warmup=True)
+        if not rows:
+            print(f"  device {name} ({label}): the profiler saw no device "
+                  "time (not measured)")
+        for key, count, us in rows:
+            print(f"  device {name} ({label}): {us / count:.2f} us per "
+                  f"launch, {count} of {n} launches  {key[:70]}")
+
+
+def host_us(torch, fn, n=1000):
+    """Host microseconds per call of fn, from time.perf_counter over n
+    calls (the device keeps up where the host is slower; the closing
+    synchronize counts)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def graph_host_times(torch, gc, v, e, idx, idx0, v0, order, rowptr):
+    """Host microseconds per call of K9 and K10 and their library calls at
+    the path's shapes, layer by layer: the C entry alone (pointers ready),
+    the wrapper's own steps, the wrapper, the torch.library operator, and
+    gather() on the solve path, alone and under torch.func.vjp (its
+    forward, then its transpose) beside index_select under the same
+    transform; then the profiler's CPU rows of the wrapper and of gather()
+    under vjp, per call over 100 calls."""
+    from opt_tpu_torch.ops import build
+    from torch.profiler import ProfilerActivity, profile
+
+    lib = build.library()
+    out_g = v.new_empty((*idx.shape, v.shape[1]))
+    out_s = torch.empty_like(v)
+    raw = (v.data_ptr(), idx.data_ptr(), out_g.data_ptr(), idx.numel(),
+           v.shape[1], 0, build.stream())
+    raw_s = (e.data_ptr(), order.data_ptr(), rowptr.data_ptr(),
+             out_s.data_ptr(), v.shape[0], v.shape[1], 0, build.stream())
+    dtypes = {"v": torch.float32, "idx": torch.int32}
+
+    def take(u):
+        return gc.gather(u, idx0, order, rowptr)
+
+    def select(u):
+        return torch.index_select(u, 0, idx0)
+
+    _, take_t = torch.func.vjp(take, v)
+    fwd, select_t = torch.func.vjp(select, v)
+    ct = torch.randn_like(fwd)
+    out_v = torch.zeros_like(v)
+    rows = {
+        "graph_gather C entry": lambda: lib.opt_graph_gather(*raw),
+        "build.all_on_cpu": lambda: build.all_on_cpu(v, idx),
+        "build.check_tensors": lambda: build.check_tensors(
+            "graph_gather", {}, dtypes, v=v, idx=idx),
+        "new_empty": lambda: v.new_empty((*idx.shape, v.shape[1])),
+        "build.stream": build.stream,
+        "graph_gather wrapper": lambda: gc.graph_gather(v, idx),
+        "graph_gather operator": lambda: gc._gather_op(v, idx),
+        "gather() forward": lambda: take(v),
+        "index_select": lambda: torch.index_select(v, 0, idx.reshape(-1)),
+        "vjp of gather() (forward)": lambda: torch.func.vjp(take, v),
+        "vjp of index_select (forward)": lambda: torch.func.vjp(select, v),
+        "gather() transpose (vjp_fn)": lambda: take_t(ct),
+        "index_select transpose (vjp_fn)": lambda: select_t(ct),
+        "graph_scatter C entry": lambda: lib.opt_graph_scatter(*raw_s),
+        "graph_scatter wrapper": lambda: gc.graph_scatter(e, v0, order,
+                                                          rowptr),
+        "graph_scatter operator": lambda: gc._scatter_op(e, v0, order,
+                                                         rowptr),
+        "index_add_": lambda: out_v.index_add_(0, v0, e),
+        "zeros_like + index_add_": lambda: torch.zeros_like(v).index_add_(
+            0, v0, e),
+    }
+    # rounds over every row, so that each row meets the host's drift in
+    # each round; the best of each row's rounds
+    best = dict.fromkeys(rows, float("inf"))
+    for name, fn in rows.items():
+        for _ in range(20):
+            fn()
+    for _ in range(3):
+        for name, fn in rows.items():
+            best[name] = min(best[name], host_us(torch, fn))
+    for name, us in best.items():
+        print(f"  host {name}: {us:.2f} us per call (best of 3 x 1000)")
+    n = 100
+    for name in ("graph_gather wrapper", "vjp of gather() (forward)"):
+        fn = rows[name]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(n):
+                fn()
+        print(f"  profiler CPU rows of {name}, per call over {n} calls:")
+        for ev in sorted(prof.key_averages(),
+                         key=lambda ev: -ev.self_cpu_time_total)[:8]:
+            print(f"    {ev.self_cpu_time_total / n:8.2f} us self "
+                  f"{ev.cpu_time_total / n:8.2f} us total "
+                  f"{ev.count / n:5.1f} x {ev.key[:60]}")
 
 
 def profile_solve(torch, plan, inputs, engine, label, card, wall_ms):
@@ -957,24 +1156,37 @@ def profile_solve(torch, plan, inputs, engine, label, card, wall_ms):
                  f"{label} engine={engine}", card, wall_ms)
 
 
+def device_rows(torch, fn, warmup=False):
+    """(kernel, launches, device us in all) of each kernel that one call
+    of fn launches, from torch.profiler; with warmup, after one call in
+    the profiler's warm-up step (the first calls a profiler traces can
+    lose launches: 4 of 20 seen without it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if warmup else None) as prof:
+        for _ in range(2 if warmup else 1):
+            fn()
+            torch.cuda.synchronize()  # a call that ends in no host read
+            if warmup:
+                prof.step()
+    # device-side rows only: the aten op rows repeat their kernels' time
+    return [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+
+
 def profile_call(torch, fn, label, card, wall_ms):
     """Where a warm solve (fn) spends the card's time: device time by
     kernel from torch.profiler (the top rows, then every other row of the
     port's kernels), and the device's busy share of the unprofiled solve's
     wall time (wall_ms; the profiler slows the host)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()  # a call that ends in no host read
-    # device-side rows only: the aten op rows repeat their kernels' time
-    rows = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(torch, fn)
     if not rows:
         print("profile: the profiler saw no device time (not measured)")
         return
@@ -1544,6 +1756,7 @@ def main():
         return drive_call(lambda: plan.solve(inputs))
 
     # -- the first path: 512x512 GN 8x400 ----------------------------------
+    print(f"[{time.perf_counter() - t_start:.1f} s] first path")
     plan = new_plan(opt_tpu_torch, energies, "gaussNewtonGPU", W, N_OUTER,
                     N_LINEAR)
     inputs = warp_inputs(W, H)
@@ -1590,6 +1803,7 @@ def main():
                   f"512x512 GN {N_OUTER}x{N_LINEAR}", card, cuda_best)
 
     # -- slice 2: the kernels at 2048x2048, then its paths ------------------
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice 2")
     timings.update(check_big_kernels(torch, dev))
     big_inputs = warp_inputs(BIG, BIG)
     for (label, kind, size, n_outer, n_linear, want_engine, want_variant,
@@ -1614,6 +1828,7 @@ def main():
                   f"{label} {n_outer}x{n_linear} (warm)", card)
 
     # -- the card's crossover: stream vs cuda, 8x100 ------------------------
+    print(f"[{time.perf_counter() - t_start:.1f} s] crossover")
     for kind, label in (("gaussNewtonGPU", "GN"), ("LMGPU", "LM")):
         for size in (BIG // 2, BIG):
             plan = new_plan(opt_tpu_torch, energies, kind, size, 8, 100)
@@ -1629,6 +1844,7 @@ def main():
             profile_solve(torch, plan, big_inputs, eng, name, card, best[eng])
 
     # -- slice 3: the volume kernels, then its paths at 128^3 ---------------
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice 3")
     check_vol_kernels(torch, dev, SMALL_VOL, TIMING_REPS)
     timings.update(check_vol_kernels(torch, dev, (VOL,) * 3,
                                      BIG_TIMING_REPS))
@@ -1655,16 +1871,20 @@ def main():
             profile_solve(torch, plan, vol_inputs, "auto", name, card, best)
 
     # -- slice 4: the graph kernels, then arap at 10k vertices ------------
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice 4")
     check_graph_kernels(torch, dev, MESH, TIMING_REPS)
     timings.update(check_graph_kernels(torch, dev, BIG_MESH,
                                        BIG_TIMING_REPS))
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice-4 paths")
     run_graph_paths(torch, drive, card)
 
     # -- slice 5: the whole-loop kernels and the stencil, then their paths -
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice 5")
     timings.update(check_slice5_kernels(torch, dev, BIG_TIMING_REPS))
     run_slice5_paths(torch, drive_call, card)
 
     # -- slice 6: the slab kernels, then the paths over a mesh of slabs ----
+    print(f"[{time.perf_counter() - t_start:.1f} s] slice 6")
     timings.update(check_slab_kernels(torch, dev, BIG_TIMING_REPS))
     run_shard_paths(torch, drive_call, card)
 

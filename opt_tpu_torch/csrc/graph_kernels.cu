@@ -6,16 +6,14 @@
 //        out[b, e] = windows[b, loc[b, e]], a vertex -> edge gather done as
 //        one-hot matmuls on split-bf16 windows of a banded (RCM-reordered)
 //        vertex layout, because the TPU's matrix unit can only gather by
-//        matmul.  Here a gather is a load: out[r, c] = V[idx[r], c] on the
-//        flat vertex order, one thread per (row, channel), channels
-//        fastest, so the writes are coalesced and the reads of a row share
-//        its cache lines;
+//        matmul.  Here a gather is a load: out[r, :] = V[idx[r], :] on the
+//        flat vertex order;
 //   K10  onehot_pallas.py _scatter_kernel / onehot_scatter_windows: the
 //        transpose, edge -> vertex with duplicates accumulated.  Here a
 //        segmented sum over the slot's incidence in CSR form (order: the
 //        edges sorted by vertex, stably; rowptr: where each vertex's run
-//        starts), one thread per (vertex, channel) summing its run in edge
-//        order.  No atomics, so repeated solves match bit for bit;
+//        starts), each vertex's run summed in edge order from zero.  No
+//        atomics, so the sum is the same on every call;
 //   K11  opt_tpu/ops/graph_pcg_kernel.py GraphPcgKernel._build: the whole
 //        graph PCG in one VMEM-resident kernel, whose apply is
 //            J p   = sum_a D_a * gather_slot(a)(p)[unk(a)]
@@ -28,6 +26,27 @@
 //        never traces the energy: the energy enters only through D and
 //        small int tables (meta below), so it holds every graph energy of
 //        this shape (one vertex space, pointwise vertex terms).
+//
+// K9 and K10 are bound by device memory: each moves whole rows of C
+// values (C the channel count, 1-16 on the graph paths) and does no
+// arithmetic but K10's adds.  C is a template parameter for C = 1..8 (one
+// generic instantiation takes any other C), so a row's offset is a 32-bit
+// multiply by a constant and no thread divides by a runtime C; every index
+// is 32-bit (the wrappers refuse 2^31 elements).  A row moves as the
+// widest vectors its size allows (16 bytes where 16 | C * sizeof(T), else
+// 8 or 4), when both base pointers are aligned to that width; otherwise
+// the generic kernel moves it one value at a time.  The vertex block is
+// read through the read-only path: on the 262k mesh it is 6.3 MB and stays
+// in the 50 MB L2 while the edge rows stream to and from HBM.
+//   K9 runs a warp over 32 rows: each lane reads one row's index, and the
+// warp writes the tile's vectors lane after lane (the source row taken by
+// a shuffle, the row of a vector found by a division by the compile-time
+// C), so consecutive lanes write consecutive vectors.  A gather moves
+// values: the output is the plain version's bit for bit.
+//   K10 runs one thread per vertex: it reads rowptr[w] and rowptr[w + 1]
+// once and order[j] once per edge, loads the edge's row as vectors and
+// keeps the C sums in registers, four edges' loads in flight before their
+// adds, which stay in edge order.
 //
 // K11 is vertex-centred: the thread of vertex v walks, for each slot s, the
 // edges whose slot-s end is v (the slot's CSR run), recomputes each edge's
@@ -52,6 +71,8 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
 constexpr int kThreads = 256;   // K9, K10
@@ -60,30 +81,141 @@ constexpr int kMetaMax = 1024;  // ints of K11's table (ops/graph_cuda.py)
 constexpr int kMaxUnk = 16;     // unknown channels
 constexpr int kMaxRes = 16;     // residual channels of one term group
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-graph_gather_kernel(const T* __restrict__ v, const int* __restrict__ idx,
-                    T* __restrict__ out, int rows, int C) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long long)rows * C) return;
-  const long long row = i / C;
-  const int c = (int)(i - row * C);
-  out[i] = v[(long long)idx[row] * C + c];
+// the vector type that moves W values of T at once
+template <typename T, int W> struct VecOf;
+template <> struct VecOf<float, 1> { using type = float; };
+template <> struct VecOf<float, 2> { using type = float2; };
+template <> struct VecOf<float, 4> { using type = float4; };
+template <> struct VecOf<double, 1> { using type = double; };
+template <> struct VecOf<double, 2> { using type = double2; };
+
+// the widest vector (at most 16 bytes) whose width divides C
+template <typename T, int C> constexpr int vec_width() {
+  int w = 16 / (int)sizeof(T);
+  while (C % w != 0) w /= 2;
+  return w;
 }
 
+template <typename T, int C> struct Row {
+  static constexpr int W = vec_width<T, C>();
+  static constexpr int NV = C / W;  // vectors a row
+  using V = typename VecOf<T, W>::type;
+};
+
+// K9: warp k of the grid moves rows [32 k, 32 k + 32)
+template <typename T, int C>
+__global__ void __launch_bounds__(kThreads)
+graph_gather_kernel(const T* __restrict__ v, const int* __restrict__ idx,
+                         T* __restrict__ out, int rows) {
+  using R = Row<T, C>;
+  using V = typename R::V;
+  const int lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * kThreads + (threadIdx.x & ~31);
+  if (r0 >= rows) return;  // the whole warp
+  const int src = r0 + lane < rows ? __ldg(idx + r0 + lane) : 0;
+  const int n = min(32, rows - r0) * R::NV;  // vectors in this tile
+  const V* vv = reinterpret_cast<const V*>(v);
+  V* dst = reinterpret_cast<V*>(out) + r0 * R::NV;
+#pragma unroll
+  for (int i = 0; i < R::NV; ++i) {
+    const int k = lane + 32 * i;
+    const int row = k / R::NV;
+    const int s = __shfl_sync(0xffffffffu, src, row);
+    if (k < n) dst[k] = __ldg(vv + s * R::NV + (k - row * R::NV));
+  }
+}
+
+// K9 for any C, or pointers not aligned to a row's vector: thread r moves
+// row r one value at a time
 template <typename T>
+__global__ void __launch_bounds__(kThreads)
+graph_gather_generic_kernel(const T* __restrict__ v,
+                            const int* __restrict__ idx, T* __restrict__ out,
+                            int rows, int C) {
+  const int r = blockIdx.x * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const T* src = v + __ldg(idx + r) * C;
+  T* dst = out + r * C;
+  for (int c = 0; c < C; ++c) dst[c] = __ldg(src + c);
+}
+
+// K10: thread w sums vertex w's run; four edges' rows are loaded before
+// they are added, in edge order
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads)
 graph_scatter_kernel(const T* __restrict__ x, const int* __restrict__ order,
                      const int* __restrict__ rowptr, T* __restrict__ out,
-                     int n, int C) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long long)n * C) return;
-  const int vtx = (int)(i / C);
-  const int c = (int)(i - (long long)vtx * C);
-  T s = T(0);
-  for (int j = rowptr[vtx]; j < rowptr[vtx + 1]; ++j)
-    s += x[(long long)order[j] * C + c];
-  out[i] = s;
+                     int n) {
+  using R = Row<T, C>;
+  using V = typename R::V;
+  constexpr int kAhead = 4;
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  if (w >= n) return;
+  const int jb = __ldg(rowptr + w), je = __ldg(rowptr + w + 1);
+  const V* xv = reinterpret_cast<const V*>(x);
+  T s[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) s[c] = T(0);
+  for (int j = jb; j < je; j += kAhead) {
+    V q[kAhead][R::NV];
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      if (j + a < je) {
+        const V* src = xv + __ldg(order + j + a) * R::NV;
+#pragma unroll
+        for (int i = 0; i < R::NV; ++i) q[a][i] = __ldg(src + i);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      if (j + a < je) {
+#pragma unroll
+        for (int i = 0; i < R::NV; ++i) {
+          const T* e = reinterpret_cast<const T*>(&q[a][i]);
+#pragma unroll
+          for (int u = 0; u < R::W; ++u) s[i * R::W + u] += e[u];
+        }
+      }
+    }
+  }
+  V* dst = reinterpret_cast<V*>(out) + w * R::NV;
+#pragma unroll
+  for (int i = 0; i < R::NV; ++i) {
+    V q;
+    T* e = reinterpret_cast<T*>(&q);
+#pragma unroll
+    for (int u = 0; u < R::W; ++u) e[u] = s[i * R::W + u];
+    dst[i] = q;
+  }
+}
+
+// K10 for any C, or pointers not aligned to a row's vector: thread w sums
+// vertex w's run kChunk channels at a time, reading order[j] once per edge
+// and chunk
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+graph_scatter_generic_kernel(const T* __restrict__ x,
+                             const int* __restrict__ order,
+                             const int* __restrict__ rowptr,
+                             T* __restrict__ out, int n, int C) {
+  constexpr int kChunk = 8;
+  const int w = blockIdx.x * kThreads + threadIdx.x;
+  if (w >= n) return;
+  const int jb = __ldg(rowptr + w), je = __ldg(rowptr + w + 1);
+  for (int c0 = 0; c0 < C; c0 += kChunk) {
+    T s[kChunk];
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) s[c] = T(0);
+    for (int j = jb; j < je; ++j) {
+      const T* src = x + __ldg(order + j) * C + c0;
+#pragma unroll
+      for (int c = 0; c < kChunk; ++c)
+        if (c0 + c < C) s[c] += __ldg(src + c);
+    }
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c)
+      if (c0 + c < C) out[w * C + c0 + c] = s[c];
+  }
 }
 
 __device__ __forceinline__ float gblock_sum(float v, float* sh) {
@@ -224,33 +356,96 @@ int blocks_for(long long n, int threads) {
   return (int)((n + threads - 1) / threads);
 }
 
+bool aligned(const void* a, const void* b, int bytes) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) %
+          bytes) == 0;
+}
+
+template <typename T, int C>
+void gather_rows(const T* v, const int* idx, T* out, int rows,
+                 cudaStream_t st) {
+  constexpr int bytes = Row<T, C>::W * (int)sizeof(T);
+  const int blocks = blocks_for(rows, kThreads);
+  if (aligned(v, out, bytes))
+    graph_gather_kernel<T, C><<<blocks, kThreads, 0, st>>>(v, idx, out, rows);
+  else
+    graph_gather_generic_kernel<T><<<blocks, kThreads, 0, st>>>(v, idx, out,
+                                                                rows, C);
+}
+
+template <typename T>
+void gather_any(const T* v, const int* idx, T* out, int rows, int C,
+                cudaStream_t st) {
+  switch (C) {
+    case 1: return gather_rows<T, 1>(v, idx, out, rows, st);
+    case 2: return gather_rows<T, 2>(v, idx, out, rows, st);
+    case 3: return gather_rows<T, 3>(v, idx, out, rows, st);
+    case 4: return gather_rows<T, 4>(v, idx, out, rows, st);
+    case 5: return gather_rows<T, 5>(v, idx, out, rows, st);
+    case 6: return gather_rows<T, 6>(v, idx, out, rows, st);
+    case 7: return gather_rows<T, 7>(v, idx, out, rows, st);
+    case 8: return gather_rows<T, 8>(v, idx, out, rows, st);
+    default:
+      graph_gather_generic_kernel<T>
+          <<<blocks_for(rows, kThreads), kThreads, 0, st>>>(v, idx, out, rows,
+                                                            C);
+  }
+}
+
+template <typename T, int C>
+void scatter_rows(const T* x, const int* order, const int* rowptr, T* out,
+                  int n, cudaStream_t st) {
+  constexpr int bytes = Row<T, C>::W * (int)sizeof(T);
+  const int blocks = blocks_for(n, kThreads);
+  if (aligned(x, out, bytes))
+    graph_scatter_kernel<T, C><<<blocks, kThreads, 0, st>>>(x, order, rowptr,
+                                                            out, n);
+  else
+    graph_scatter_generic_kernel<T><<<blocks, kThreads, 0, st>>>(
+        x, order, rowptr, out, n, C);
+}
+
+template <typename T>
+void scatter_any(const T* x, const int* order, const int* rowptr, T* out,
+                 int n, int C, cudaStream_t st) {
+  switch (C) {
+    case 1: return scatter_rows<T, 1>(x, order, rowptr, out, n, st);
+    case 2: return scatter_rows<T, 2>(x, order, rowptr, out, n, st);
+    case 3: return scatter_rows<T, 3>(x, order, rowptr, out, n, st);
+    case 4: return scatter_rows<T, 4>(x, order, rowptr, out, n, st);
+    case 5: return scatter_rows<T, 5>(x, order, rowptr, out, n, st);
+    case 6: return scatter_rows<T, 6>(x, order, rowptr, out, n, st);
+    case 7: return scatter_rows<T, 7>(x, order, rowptr, out, n, st);
+    case 8: return scatter_rows<T, 8>(x, order, rowptr, out, n, st);
+    default:
+      graph_scatter_generic_kernel<T>
+          <<<blocks_for(n, kThreads), kThreads, 0, st>>>(x, order, rowptr,
+                                                         out, n, C);
+  }
+}
+
 }  // namespace
 
 // is_double picks the element type (float or double) of v and out
 extern "C" int opt_graph_gather(const void* v, const int* idx, void* out,
                                 int rows, int C, int is_double,
                                 void* stream) {
-  const int blocks = blocks_for((long long)rows * C, kThreads);
+  const cudaStream_t st = (cudaStream_t)stream;
   if (is_double)
-    graph_gather_kernel<double><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const double*)v, idx, (double*)out, rows, C);
+    gather_any((const double*)v, idx, (double*)out, rows, C, st);
   else
-    graph_gather_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)v, idx, (float*)out, rows, C);
+    gather_any((const float*)v, idx, (float*)out, rows, C, st);
   return (int)cudaGetLastError();
 }
 
 extern "C" int opt_graph_scatter(const void* x, const int* order,
                                  const int* rowptr, void* out, int n, int C,
                                  int is_double, void* stream) {
-  const int blocks = blocks_for((long long)n * C, kThreads);
+  const cudaStream_t st = (cudaStream_t)stream;
   if (is_double)
-    graph_scatter_kernel<double>
-        <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-            (const double*)x, order, rowptr, (double*)out, n, C);
+    scatter_any((const double*)x, order, rowptr, (double*)out, n, C, st);
   else
-    graph_scatter_kernel<float><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        (const float*)x, order, rowptr, (float*)out, n, C);
+    scatter_any((const float*)x, order, rowptr, (float*)out, n, C, st);
   return (int)cudaGetLastError();
 }
 

@@ -43,7 +43,8 @@ LIB_NAME = "libopt_tpu_torch.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> argument types; every pointer and the stream are c_void_p
+# name -> argument types; every pointer and the stream are c_void_p, which
+# takes a Python int (a data_ptr()) as it is
 SIGNATURES = {
     "opt_warp_blocks": [_I, _I],
     "opt_warp_jtj_apply": [_P] * 9 + [_I, _I, _P],
@@ -169,22 +170,26 @@ def coop_blocks(n, name):
 
 
 def ptr(t):
-    """A tensor's device address for ctypes; None (a null pointer) for
-    an operand that is absent."""
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
+    """A tensor's device address for ctypes (an int); None (a null
+    pointer) for an operand that is absent."""
+    return None if t is None else t.data_ptr()
 
 
 def stream():
+    """The current CUDA stream of the current device, as an int."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
 
 
 def all_on_cpu(*tensors):
     """True when every tensor lies on the CPU: the wrappers then run their
     plain versions.  A call that mixes devices goes to the kernel's checks,
     which refuse it."""
-    return all(t is None or t.device.type == "cpu" for t in tensors)
+    for t in tensors:
+        if t is not None and not t.is_cpu:
+            return False
+    return True
 
 
 def present(**tensors):
@@ -195,22 +200,26 @@ def present(**tensors):
 def check_tensors(name, shapes, dtypes=None, **tensors):
     """Raise unless every tensor is a contiguous CUDA tensor of the shape
     given in ``shapes`` (name -> shape) and of the type given in ``dtypes``
-    (name -> dtype; float32 where not named)."""
+    (name -> dtype; float32 where not named), all on one device.  One pass
+    over the tensors, reading each property once."""
     import torch
 
-    device = next(iter(tensors.values())).device
+    index = None
     for arg, t in tensors.items():
-        if t.device.type != "cuda" or t.device != device:
+        if not t.is_cuda or (index is not None and t.get_device() != index):
+            first = next(iter(tensors.values()))
             raise ValueError(
                 f"{name}: {arg} is on {t.device}; every tensor must be on "
-                f"one cuda device ({device})")
-        want_dtype = (dtypes or {}).get(arg, torch.float32)
+                f"one cuda device ({first.device})")
+        if index is None:
+            index = t.get_device()
+        want_dtype = dtypes.get(arg, torch.float32) if dtypes else torch.float32
         if t.dtype != want_dtype:
             raise ValueError(f"{name}: {arg} is {t.dtype}, not {want_dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")
         want = shapes.get(arg)
-        if want is not None and tuple(t.shape) != tuple(want):
+        if want is not None and t.shape != tuple(want):
             raise ValueError(
                 f"{name}: {arg} has shape {tuple(t.shape)}, want "
                 f"{tuple(want)}")

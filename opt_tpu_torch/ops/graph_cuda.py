@@ -9,9 +9,9 @@ compile/evaluate.py gathers a slot's vertex rows through gather() below, an
 autograd function whose forward and tangent are K9 and whose transpose is
 K10, so cost, J^T F (torch.func.vjp), the leaf partials (torch.func.jvp)
 and the plain engine's linearized J p all run on them on the card.  They
-are registered as torch.library custom ops, so torch.func.linearize, which
-traces its J p with make_fx and replays the trace, records the launches
-rather than the empty buffers a ctypes launch would leave in the trace.
+are torch.library operators, so torch.func.linearize, which traces its J p
+with make_fx and replays the trace, records the launches rather than the
+empty buffers a ctypes launch would leave in the trace.
 
 The "graph" engine (GraphOperator) follows GraphPcgKernel: once per outer
 step it materializes the per-leaf partials D_a = dr/da through
@@ -132,15 +132,15 @@ def graph_gather(v, idx):
                          "want (N, C)")
     build.check_tensors("graph_gather", {}, {"v": dt, "idx": torch.int32},
                         v=v, idx=idx)
-    C = v.shape[1]
-    out = torch.empty(*idx.shape, C, dtype=dt, device=v.device)
-    if out.numel() == 0:
+    rows, C = idx.numel(), v.shape[1]
+    out = v.new_empty((*idx.shape, C))
+    if rows * C == 0:
         return out
-    if out.numel() >= 2 ** 31:
+    if rows * C >= 2 ** 31 or v.numel() >= 2 ** 31:
         raise ValueError("graph_gather: more than 2^31 - 1 elements")
     rc = build.library().opt_graph_gather(
-        build.ptr(v), build.ptr(idx), build.ptr(out), idx.numel(), C,
-        int(dt == torch.float64), build.stream())
+        v.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, C,
+        dt is torch.float64, build.stream())
     build.check(rc, "graph_gather")
     graph_gather.launches += 1
     return out
@@ -149,8 +149,8 @@ def graph_gather(v, idx):
 def graph_scatter(x, idx, order, rowptr):
     """K10: out[w, c] = sum of x[e, c] over the edges e with idx[e] = w --
     kernel on CUDA (a segmented sum over the CSR incidence (order,
-    rowptr), in edge order: deterministic), plain index_add_ on CPU.
-    x is an (E, C) float32 or float64 block; N = len(rowptr) - 1."""
+    rowptr), in edge order from zero: deterministic), plain index_add_ on
+    CPU.  x is an (E, C) float32 or float64 block; N = len(rowptr) - 1."""
     n = rowptr.shape[0] - 1
     if build.all_on_cpu(x, idx, order, rowptr):
         return graph_scatter_plain(x, idx, n)
@@ -163,14 +163,14 @@ def graph_scatter(x, idx, order, rowptr):
         "graph_scatter", {"order": (E_,), "rowptr": (n + 1,)},
         {"x": dt, "order": torch.int32, "rowptr": torch.int32},
         x=x, order=order, rowptr=rowptr)
-    out = torch.empty(n, C, dtype=dt, device=x.device)
-    if out.numel() == 0:
+    out = x.new_empty((n, C))
+    if n * C == 0:
         return out
-    if out.numel() >= 2 ** 31 or x.numel() >= 2 ** 31:
+    if n * C >= 2 ** 31 or E_ * C >= 2 ** 31:
         raise ValueError("graph_scatter: more than 2^31 - 1 elements")
     rc = build.library().opt_graph_scatter(
-        build.ptr(x), build.ptr(order), build.ptr(rowptr), build.ptr(out), n,
-        C, int(dt == torch.float64), build.stream())
+        x.data_ptr(), order.data_ptr(), rowptr.data_ptr(), out.data_ptr(), n,
+        C, dt is torch.float64, build.stream())
     build.check(rc, "graph_scatter")
     graph_scatter.launches += 1
     return out
@@ -215,29 +215,38 @@ graph_hat_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# the gather as the evaluator sees it: custom ops under an autograd function
+# the gather as the evaluator sees it: torch.library operators under an
+# autograd function
 # ---------------------------------------------------------------------------
 
 
-@torch.library.custom_op("opt_tpu_torch::graph_gather", mutates_args=())
-def _gather_op(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return graph_gather(v.contiguous(), idx)
+# Registered with the dispatcher directly (a schema and one Python kernel
+# for CPU and CUDA): torch.library.custom_op's own Python layers (its
+# autograd and backend wrappers) cost more host time than the launch.
+_LIB = torch.library.Library("opt_tpu_torch", "FRAGMENT")
+_LIB.define("graph_gather(Tensor v, Tensor idx) -> Tensor")
+_LIB.define("graph_scatter(Tensor x, Tensor idx, Tensor order, "
+            "Tensor rowptr) -> Tensor")
+for _key in ("CPU", "CUDA"):
+    _LIB.impl("graph_gather",
+              lambda v, idx: graph_gather(v.contiguous(), idx), _key)
+    _LIB.impl("graph_scatter",
+              lambda x, idx, order, rowptr: graph_scatter(
+                  x.contiguous(), idx, order, rowptr), _key)
 
 
-@_gather_op.register_fake
+@torch.library.register_fake("opt_tpu_torch::graph_gather", lib=_LIB)
 def _(v, idx):
     return v.new_empty(tuple(idx.shape) + tuple(v.shape[1:]))
 
 
-@torch.library.custom_op("opt_tpu_torch::graph_scatter", mutates_args=())
-def _scatter_op(x: torch.Tensor, idx: torch.Tensor, order: torch.Tensor,
-                rowptr: torch.Tensor) -> torch.Tensor:
-    return graph_scatter(x.contiguous(), idx, order, rowptr)
-
-
-@_scatter_op.register_fake
+@torch.library.register_fake("opt_tpu_torch::graph_scatter", lib=_LIB)
 def _(x, idx, order, rowptr):
     return x.new_empty((rowptr.shape[0] - 1,) + tuple(x.shape[1:]))
+
+
+_gather_op = torch.ops.opt_tpu_torch.graph_gather.default
+_scatter_op = torch.ops.opt_tpu_torch.graph_scatter.default
 
 
 class _Gather(torch.autograd.Function):
@@ -266,8 +275,8 @@ class _Gather(torch.autograd.Function):
 
 def gather(v, idx, order, rowptr):
     """v[idx] for an (N, C) vertex block, differentiable in v under
-    torch.func (jvp, vjp, linearize): K9 forward and tangent, K10
-    transpose over the slot's CSR incidence (order, rowptr)."""
+    torch.func (jvp, vjp, linearize) and autograd: K9 forward and tangent,
+    K10 transpose over the slot's CSR incidence (order, rowptr)."""
     return _Gather.apply(v, idx, order, rowptr)
 
 

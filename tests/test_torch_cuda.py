@@ -362,6 +362,74 @@ def test_graph_gather_and_scatter_match_plain(dev, dtype):
     assert graph_cuda.graph_scatter.launches == k10 + 2
 
 
+# K9 and K10 at every channel count they instantiate (1-8) and one the
+# generic kernels take (11); a base one element past an aligned address
+# sends a vector-width row to the generic kernels too
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 5, 6, 7, 8, 11])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_graph_kernels_exact_at_every_width(dev, dtype, C):
+    v0, v1 = chip_smoke.tri_grid_graph(37, 23)
+    n, E = 37 * 23, len(v0)
+    rng = np.random.RandomState(C)
+    idx = torch.as_tensor(np.stack([v0, v1, v0[::-1].copy()]), device=dev)
+    order, rowptr = (torch.as_tensor(a, device=dev)
+                     for a in graph_cuda.incidence(v1, n))
+    flat_v = torch.as_tensor(rng.randn(n * C + 1), device=dev).to(dtype)
+    flat_x = torch.as_tensor(rng.randn(E * C + 1), device=dev).to(dtype)
+    for off in (0, 1):
+        v = flat_v[off:off + n * C].view(n, C)
+        x = flat_x[off:off + E * C].view(E, C)
+        k9 = graph_cuda.graph_gather.launches
+        k10 = graph_cuda.graph_scatter.launches
+        want = graph_cuda.graph_gather_plain(v, idx)
+        got = graph_cuda.graph_gather(v, idx)
+        assert got.shape == (3, E, C) and got.dtype == dtype
+        assert torch.equal(got, want)
+        out = graph_cuda.graph_scatter(x, idx[1], order, rowptr)
+        assert torch.equal(out.cpu(), chip_smoke.scatter_in_edge_order(
+            torch, x, order, rowptr))
+        assert torch.equal(out, graph_cuda.graph_scatter(x, idx[1], order,
+                                                         rowptr))
+        torch.cuda.synchronize()
+        assert graph_cuda.graph_gather.launches == k9 + 1
+        assert graph_cuda.graph_scatter.launches == k10 + 2
+
+
+def test_graph_kernels_refuse_bad_operands(dev):
+    v0, v1 = chip_smoke.tri_grid_graph(9, 7)
+    n = 63
+    v = torch.randn(n, 4, device=dev)
+    x = torch.randn(len(v0), 4, device=dev)
+    idx = torch.as_tensor(v1, device=dev)
+    order, rowptr = (torch.as_tensor(a, device=dev)
+                     for a in graph_cuda.incidence(v1, n))
+    k9 = graph_cuda.graph_gather.launches
+    k10 = graph_cuda.graph_scatter.launches
+    with pytest.raises(ValueError, match="float32 or float64"):
+        graph_cuda.graph_gather(v.half(), idx)
+    with pytest.raises(ValueError, match="int64"):
+        graph_cuda.graph_gather(v, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        graph_cuda.graph_gather(torch.randn(4, n, device=dev).t(), idx)
+    with pytest.raises(ValueError, match="cuda"):
+        graph_cuda.graph_gather(v, idx.cpu())
+    with pytest.raises(ValueError, match="want \\(N, C\\)"):
+        graph_cuda.graph_gather(v.view(-1), idx)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        graph_cuda.graph_scatter(x.half(), idx, order, rowptr)
+    with pytest.raises(ValueError, match="int64"):
+        graph_cuda.graph_scatter(x, idx, order.long(), rowptr)
+    with pytest.raises(ValueError, match="contiguous"):
+        graph_cuda.graph_scatter(torch.randn(4, len(v0), device=dev).t(),
+                                 idx, order, rowptr)
+    with pytest.raises(ValueError, match="cuda"):
+        graph_cuda.graph_scatter(x, idx, order, rowptr.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        graph_cuda.graph_scatter(x[:-1], idx, order, rowptr)
+    assert graph_cuda.graph_gather.launches == k9
+    assert graph_cuda.graph_scatter.launches == k10
+
+
 @pytest.mark.parametrize("prev", [False, True])
 @pytest.mark.parametrize("lm", [False, True])
 def test_graph_hat_apply_kernel_matches_plain(dev, lm, prev):
