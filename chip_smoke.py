@@ -53,7 +53,10 @@ Phases (any failure raises and the exit code is non-zero):
      partials at the path's 102x102 triangulated mesh (10,404 vertices,
      61,610 edges) and on a 512x512 one (262,144 vertices, 1,568,770
      edges): K9 graph_gather (f32 and f64), K10 graph_scatter (f32 and
-     f64), K11 graph_hat_apply (GN and LM, with and without p_prev), with
+     f64), K11 graph_hat_apply's edge pass (with and without p_prev), its
+     vertex pass on the edge pass's rows and the whole apply (GN and LM,
+     with and without p_prev), the bytes K11's two passes move beside its
+     bound and each pass's device time per launch, with
      the one PyTorch call that computes K9's and K10's function
      (index_select, index_add_) timed beside them and each kernel's share
      of its bound; K9 bit for bit its plain version and K10 bit for bit
@@ -313,7 +316,8 @@ KERNEL_SYMBOLS = (
     "warp_hat_apply_kernel", "warp_pipelined_sweep_kernel",
     "vol_hat_apply_kernel", "vol_pipelined_sweep_kernel",
     "vol_linearize_kernel", "graph_gather_", "graph_scatter_",
-    "graph_hat_apply_kernel", "pcg_kernel<", "stencil_kernel",
+    "graph_hat_edge_kernel", "graph_hat_vertex_kernel", "pcg_kernel<",
+    "stencil_kernel",
     "warp_slab_apply_kernel", "vol_slab_apply_kernel")
 
 
@@ -931,11 +935,16 @@ def check_graph_kernels(torch, dev, w, reps):
     vec = nbytes(t["r"])
     n_leaves_res = sum(D.shape[0] for _, _, _, D, _ in tab.graph)
     fit_rows = tab.fit[3].shape[0]
-    # two flops a multiply-add: each edge's tangent once per slot side and
-    # its cotangent once, each vertex's fit rows twice
-    hat_ops = (2 * 3 * n_leaves_res * n_edges + 4 * fit_rows * n_verts
-               + 6 * t["r"].numel())
-    tables = nbytes(tab.D, tab.idx, tab.order, tab.rowptr, tab.meta)
+    # two flops a multiply-add: each edge's tangent and its cotangent once,
+    # each vertex's fit rows twice
+    edge_ops = 4 * n_leaves_res * n_edges
+    vertex_ops = tab.c.numel() + 4 * fit_rows * n_verts + 6 * t["r"].numel()
+    hat_ops = edge_ops + vertex_ops
+    # the function's least bytes (the bound): D, the edges' endpoints, the
+    # group table and the vectors; the CSR incidence (order, rowptr) and
+    # the c rows are what the two passes' design adds
+    tables = nbytes(tab.D, tab.idx, tab.meta)
+    graph_d = sum(nbytes(D) for _, _, _, D, _ in tab.graph)
     cases, library = {}, {}
     for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
         v = torch.as_tensor(rng.randn(n_verts, 6), device=dev).to(dt)
@@ -953,6 +962,31 @@ def check_graph_kernels(torch, dev, w, reps):
             nbytes(e, order, rowptr, v), n_edges * 6)
         library[f"graph_scatter({tag})"] = (
             lambda e=e, v=v: torch.zeros_like(v).index_add_(0, v0, e))
+    # K11's two passes, each against its plain version: the vertex pass
+    # (kernel and plain) reads the rows in the tables' c buffer, as the
+    # last edge pass left them
+    for prev in (True, False):
+        extra = (t["p"], beta) if prev else ()
+        cases[f"graph_hat_apply(edge{', p_prev' if prev else ''})"] = (
+            lambda extra=extra: [c for rows in gc.graph_hat_edge(
+                tab, t["sq"], t["r"], *extra) for c in rows],
+            lambda extra=extra: [c for rows in gc.graph_hat_edge_plain(
+                tab, t["sq"], t["r"], *extra) for c in rows],
+            graph_d + nbytes(tab.idx, tab.c) + (2 + prev) * vec, edge_ops)
+    for lm in (False, True):
+        mode = "lm" if lm else "gn"
+        scs = t["scs"] if lm else None
+        for prev in (True, False):
+            extra = (t["p"], beta) if prev else ()
+            cases[f"graph_hat_apply(vertex {mode}"
+                  f"{', p_prev' if prev else ''})"] = (
+                lambda scs=scs, extra=extra: gc.graph_hat_vertex(
+                    tab, tab.c_rows, t["sq"], scs, t["r"], *extra),
+                lambda scs=scs, extra=extra: gc.graph_hat_vertex_plain(
+                    tab, tab.c_rows, t["sq"], scs, t["r"], *extra),
+                nbytes(tab.D, tab.order, tab.rowptr, tab.meta, tab.c,
+                       tab.partials) - graph_d + (3 + 2 * prev + lm) * vec,
+                vertex_ops)
     for lm in (False, True):
         mode = "lm" if lm else "gn"
         scs = t["scs"] if lm else None
@@ -974,6 +1008,30 @@ def check_graph_kernels(torch, dev, w, reps):
         print(f"  {name}: {100 * out[name]['bound_ms'] / out[name]['ms']:.1f}"
               f"% of its bound ({out[name]['ms'] * 1e3:.1f} us against "
               f"{out[name]['bound_ms'] * 1e3:.1f} us)")
+    # K11 (GN, p_prev, as on the path): the bytes its two passes move
+    # beside the function's bound, and each launch's device time
+    apply = "graph_hat_apply(gn, p_prev)"
+    design = (nbytes(tab.D, tab.idx, tab.order, tab.rowptr, tab.meta,
+                     tab.partials) + 2 * nbytes(tab.c) + 5 * vec)
+    print(f"  graph_hat_apply's two passes move {design / 1e6:.1f} MB "
+          f"(the c rows {nbytes(tab.c) / 1e6:.1f} MB written and read), "
+          f"{design / HBM_BYTES_PER_S * 1e6:.1f} us at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, beside the function's bound "
+          f"{out[apply]['bound_ms'] * 1e3:.1f} us "
+          f"({(tables + 5 * vec) / 1e6:.1f} MB)")
+    rows = device_us_per_launch(torch, {
+        apply: lambda: gc.graph_hat_apply(tab, t["sq"], None, t["r"],
+                                          t["p"], beta)}, f"{w}x{w} mesh")
+    passes = [(key, count, us) for key, count, us in rows[apply]
+              if "graph_hat_" in key]
+    if len(passes) == 2:
+        dev_us = sum(us / count for _, count, us in passes)
+        out[apply]["device_ms"] = dev_us / 1e3
+        of_bound = out[apply]["bound_ms"] * 1e3 / dev_us
+        of_bytes = design / HBM_BYTES_PER_S * 1e6 / dev_us
+        print(f"  device {apply} ({w}x{w} mesh): {dev_us:.2f} us an apply "
+              f"(edge + vertex pass), {100 * of_bound:.1f}% of its bound, "
+              f"{100 * of_bytes:.1f}% of its passes' bytes at the peak")
     v32 = torch.as_tensor(rng.randn(n_verts, 6).astype(np.float32),
                           device=dev)
     e32 = torch.as_tensor(rng.randn(n_edges, 6).astype(np.float32),
@@ -1042,20 +1100,22 @@ def check_graph_exact(torch, dev, v0, order, rowptr, n_verts, channels,
 def device_us_per_launch(torch, fns, label, n=20):
     """Device microseconds per launch of each kernel that each fn
     launches, from torch.profiler over n calls, after n calls in the
-    profiler's warm-up step."""
+    profiler's warm-up step.  name -> device_rows."""
 
     def calls(fn):
         for _ in range(n):
             fn()
 
+    out = {}
     for name, fn in fns.items():
-        rows = device_rows(torch, lambda: calls(fn), warmup=True)
+        rows = out[name] = device_rows(torch, lambda: calls(fn), warmup=True)
         if not rows:
             print(f"  device {name} ({label}): the profiler saw no device "
                   "time (not measured)")
         for key, count, us in rows:
             print(f"  device {name} ({label}): {us / count:.2f} us per "
                   f"launch, {count} of {n} launches  {key[:70]}")
+    return out
 
 
 def host_us(torch, fn, n=1000):
@@ -1199,6 +1259,13 @@ def profile_call(torch, fn, label, card, wall_ms):
         if n < 12 or any(k in key for k in KERNEL_SYMBOLS):
             print(f"  {us / 1e3:9.2f} ms {count:6d} x {us / count:8.2f} us  "
                   f"{key[:90]}")
+    passes = [r for r in rows if "graph_hat_" in r[0]]
+    if passes:  # K11: an edge and a vertex pass an apply
+        us = sum(r[2] for r in passes)
+        applies = max(r[1] for r in passes)
+        print(f"  {us / 1e3:9.2f} ms {applies:6d} x {us / applies:8.2f} us  "
+              f"K11 graph_hat_apply, its two passes together "
+              f"({100 * us / 1e3 / busy_ms:.1f}% of device time)")
 
 
 def timed_call(torch, fn):
@@ -1929,7 +1996,10 @@ def main():
                   if k.split("(")[0] == name)
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": total[name],
-                     "max_abs_err": err, "ms": timings[case]["ms"],
+                     "max_abs_err": err,
+                     # K11: its two passes' profiled device time an apply
+                     "ms": timings[case].get("device_ms",
+                                             timings[case]["ms"]),
                      "plain_ms": timings[case]["plain_ms"],
                      "bound_ms": timings[case]["bound_ms"],
                      "bound_by": timings[case]["bound_by"],

@@ -60,7 +60,9 @@ SIGNATURES = {
     "opt_graph_gather": [_P] * 3 + [_I] * 3 + [_P],
     "opt_graph_scatter": [_P] * 4 + [_I] * 3 + [_P],
     "opt_graph_blocks": [_I],
-    "opt_graph_hat_apply": [_P] * 5 + [_I] + [_P] * 8 + [_I, _P],
+    "opt_graph_hat_edge": [_P] * 3 + [_I] + [_P] * 6,
+    "opt_graph_hat_vertex": [_P] * 5 + [_I] + [_P] * 8 + [_I, _P],
+    "opt_graph_hat_apply": [_P] * 6 + [_I] + [_P] * 9 + [_I, _P],
     "opt_poisson_cg_blocks": [_I],
     "opt_poisson_cg": [_P] * 7 + [_I] * 5 + [_P],
     "opt_resident_warp_blocks": [_I],

@@ -22,10 +22,19 @@ funcs.leaf_partials, and the inner PCG applies
 
 in the hat space (ops/stream_cuda.py): classic_pcg with K11 as its apply
 and K2's hat mode as its update, GN and LM, as GraphPcgKernel.solve runs
-its classic loop.  The energy enters K11 only through D and a small int
-table (HatTables), so it holds every graph energy whose images share one
-vertex space, with no Exclude and pointwise vertex terms: arap,
-embedded_mesh_deformation, robust_nonrigid_alignment.  Not ported: the
+its classic loop.  K11 is two kernels behind one C entry: an edge pass (a
+thread per edge: the tangent once, then each leaf's c_a = D_a^T t, written
+as rows of one (E, L_s) buffer per slot) and a vertex pass (a thread per
+vertex: K10's segmented sum of those rows over its CSR runs, then the
+pointwise vertex terms, p, A_hat p and the block partials of <p, A_hat p>).
+graph_hat_edge and graph_hat_vertex launch each pass alone, for the checks;
+graph_hat_edge_plain and graph_hat_vertex_plain are their plain versions.
+The energy enters K11 only through D and a small int table (HatTables),
+so it holds every graph energy whose images share one vertex space, with
+no Exclude, pointwise vertex terms and at most MAX_LEAVES leaves on
+MAX_SLOTS slots a graph group (the edge pass's argument): arap,
+embedded_mesh_deformation, robust_nonrigid_alignment.  A plan past those
+limits solves on engine="torch".  Not ported: the
 banded (RCM-reordered, split-bf16 one-hot) layout, which exists for the
 TPU's matrix unit (opt_tpu/ops/graph_banded.py:452-485); a gather here is a
 load on the flat vertex order.
@@ -46,11 +55,16 @@ from ..dsl import expr as E
 from . import build
 from .stream_cuda import classic_pcg
 
-# K11's static limits, as csrc/graph_kernels.cu sizes its shared memory and
-# its per-thread tangent
+# K11's static limits, as csrc/graph_kernels.cu sizes its shared memory,
+# its per-thread tangent and its edge pass's argument (kMaxUnk, kMaxRes,
+# kMetaMax, kMaxLeaves, kMaxSlots), and its vertex pass's block (kGThreads:
+# one partial of <p, A_hat p> a block of VERTEX_THREADS vertices)
 MAX_UNKNOWN_CHANNELS = 16
 MAX_RESIDUALS = 16
 META_MAX = 1024
+MAX_LEAVES = 32
+MAX_SLOTS = 8
+VERTEX_THREADS = 64
 
 
 def incidence(idx, n_verts):
@@ -107,6 +121,78 @@ def graph_hat_apply_plain(t, sq, scs, r, p_prev=None, beta=None):
     if scs is not None:
         ap = ap + scs * p
     return p, ap, torch.dot(p, ap)
+
+
+def graph_hat_edge_plain(t, sq, r, p_prev=None, beta=None):
+    """K11's edge pass: per graph group, per slot s, the (E, L_s) rows
+    c_s[e, k] = sum_cr D_a[cr, e] t[cr, e] for the slot's k-th leaf a, with
+    the tangent t = sum_a D_a (sq p)[unk(a)] at the edge's slot(a) end and
+    p = r + beta p_prev."""
+    p = r if p_prev is None else r + beta * p_prev
+    ps = (sq * p)[t.flat_index]  # (n_unk, N)
+    out = []
+    for _, n_res, leaves, D, idx in t.graph:
+        g = ps[:, idx]  # (n_unk, n_slots, E)
+        Dl = D.view(len(leaves), n_res, -1)
+        tan = sum(Dl[a] * g[u, s] for a, (s, u) in enumerate(leaves))
+        cols = [[] for _ in range(idx.shape[0])]
+        for a, (s, _) in enumerate(leaves):
+            cols[s].append(torch.sum(Dl[a] * tan, dim=0))
+        out.append([torch.stack(c, dim=1) if c
+                    else tan.new_zeros((tan.shape[1], 0)) for c in cols])
+    return out
+
+
+def run_sums(x, order, rowptr):
+    """out[w] = ((0 + x[e_1]) + x[e_2]) + ... over vertex w's run e_1, e_2,
+    ... of the CSR incidence (order, rowptr): the segmented sum in edge
+    order from zero, as K10 and K11's vertex pass take it, one rank of
+    every run at a time."""
+    order, rowptr = order.long(), rowptr.long()
+    deg = rowptr[1:] - rowptr[:-1]
+    out = x.new_zeros((deg.numel(),) + tuple(x.shape[1:]))
+    for k in range(int(deg.max()) if deg.numel() else 0):
+        w = torch.nonzero(deg > k).squeeze(1)
+        out[w] += x[order[rowptr[w] + k]]
+    return out
+
+
+def hat_vertex_sums(t, c):
+    """J^T of the edge rows c (graph_hat_edge_plain's layout) as K11's
+    vertex pass sums it: (n_unk, N), per group and slot in order, each
+    column's run sums (run_sums) added into its leaf's unknown channel."""
+    acc = c[0][0].new_zeros(t.flat_index.shape)
+    for (_, _, leaves, _, _), rows, csr in zip(t.graph, c, t.incidence):
+        for s, (cs, (order, rowptr)) in enumerate(zip(rows, csr)):
+            sums = run_sums(cs, order, rowptr)
+            unks = [u for ls, u in leaves if ls == s]
+            for k, u in enumerate(unks):
+                acc[u] += sums[:, k]
+    return acc
+
+
+def graph_hat_vertex_plain(t, c, sq, scs, r, p_prev=None, beta=None):
+    """K11's vertex pass on the edge rows c: (p, A_hat p, partials), with
+    partials[b] = <p, A_hat p> over the vertices [b VERTEX_THREADS,
+    (b + 1) VERTEX_THREADS)."""
+    p = r if p_prev is None else r + beta * p_prev
+    acc = hat_vertex_sums(t, c)
+    if t.fit is not None:
+        ps = (sq * p)[t.flat_index]
+        _, n_res, leaves, D = t.fit
+        Dl = D.view(len(leaves), n_res, -1)
+        tan = sum(Dl[a] * ps[u] for a, u in enumerate(leaves))
+        for a, u in enumerate(leaves):
+            acc[u] += torch.sum(Dl[a] * tan, dim=0)
+    jtj = torch.empty_like(p)
+    jtj[t.flat_index] = acc
+    ap = sq * jtj
+    if scs is not None:
+        ap = ap + scs * p
+    dots = torch.sum((p * ap)[t.flat_index], dim=0)  # per vertex
+    dots = torch.nn.functional.pad(dots, (0, t.partials.numel()
+                                          * VERTEX_THREADS - dots.numel()))
+    return p, ap, torch.sum(dots.view(-1, VERTEX_THREADS), dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -176,41 +262,92 @@ def graph_scatter(x, idx, order, rowptr):
     return out
 
 
-def graph_hat_apply(t, sq, scs, r, p_prev=None, beta=None):
-    """K11: (p, A_hat p, <p, A_hat p>) -- kernel on CUDA, plain on CPU.
-    t: HatTables; beta is a 0-d device tensor, given with p_prev; p is a
-    new buffer (r itself when p_prev is None)."""
-    if build.all_on_cpu(t.D, sq, scs, r, p_prev, beta):
-        return graph_hat_apply_plain(t, sq, scs, r, p_prev, beta)
-    if (p_prev is None) != (beta is None):
-        raise ValueError("graph_hat_apply: p_prev and beta come together")
-    n = r.shape[0]
+def _hat_checks(name, t, **tensors):
+    """Raise unless the apply's operands (name -> tensor or None) and the
+    tables' own buffers are contiguous float32 or int32 CUDA tensors of one
+    device, the vectors of the tables' length, p_prev and beta given
+    together."""
+    if (tensors.get("p_prev") is None) != (tensors.get("beta") is None):
+        raise ValueError(f"{name}: p_prev and beta come together")
+    n = t.flat_index.numel()
     ints = {k: torch.int32 for k in ("idx", "order", "rowptr", "meta")}
     build.check_tensors(
-        "graph_hat_apply",
+        name,
         {"sq": (n,), "scs": (n,), "r": (n,), "p_prev": (n,), "beta": ()},
         ints,
         **build.present(D=t.D, idx=t.idx, order=t.order, rowptr=t.rowptr,
-                        meta=t.meta, sq=sq, scs=scs, r=r, p_prev=p_prev,
-                        beta=beta))
-    lib = build.library()
+                        meta=t.meta, c=t.c, partials=t.partials, **tensors))
+
+
+def graph_hat_edge(t, sq, r, p_prev=None, beta=None):
+    """K11's edge pass alone -- kernel on CUDA, plain on CPU: the rows c
+    as graph_hat_edge_plain lays them out; on CUDA the views of the
+    tables' c buffer, which the next apply overwrites."""
+    if build.all_on_cpu(t.D, sq, r, p_prev, beta):
+        return graph_hat_edge_plain(t, sq, r, p_prev, beta)
+    _hat_checks("graph_hat_edge", t, sq=sq, r=r, p_prev=p_prev, beta=beta)
+    rc = build.library().opt_graph_hat_edge(
+        build.ptr(t.D), build.ptr(t.idx), t.meta_host_ptr,
+        t.meta.numel(), build.ptr(sq), build.ptr(r), build.ptr(p_prev),
+        build.ptr(beta), build.ptr(t.c), build.stream())
+    build.check(rc, "graph_hat_edge")
+    graph_hat_edge.launches += 1
+    return t.c_rows
+
+
+def graph_hat_vertex(t, c, sq, scs, r, p_prev=None, beta=None):
+    """K11's vertex pass alone on the edge rows c -- kernel on CUDA, plain
+    on CPU: (p, A_hat p, partials); on CUDA c is copied into the tables' c
+    buffer unless it is that buffer's views, and partials is the tables'
+    buffer, which the next apply overwrites."""
+    if build.all_on_cpu(t.D, sq, scs, r, p_prev, beta):
+        return graph_hat_vertex_plain(t, c, sq, scs, r, p_prev, beta)
+    _hat_checks("graph_hat_vertex", t, sq=sq, scs=scs, r=r, p_prev=p_prev,
+                beta=beta)
+    for rows, views in zip(c, t.c_rows):
+        for x, view in zip(rows, views):
+            if x.data_ptr() != view.data_ptr():
+                view.copy_(x)
     p = torch.empty_like(r) if p_prev is not None else r
     ap = torch.empty_like(r)
-    parts = torch.empty(lib.opt_graph_blocks(t.n_verts), dtype=r.dtype,
-                        device=r.device)
-    rc = lib.opt_graph_hat_apply(
+    rc = build.library().opt_graph_hat_vertex(
+        build.ptr(t.D), build.ptr(t.order), build.ptr(t.rowptr),
+        build.ptr(t.c), build.ptr(t.meta), t.meta.numel(), build.ptr(sq),
+        build.ptr(scs), build.ptr(r), build.ptr(p_prev), build.ptr(beta),
+        build.ptr(p) if p_prev is not None else None, build.ptr(ap),
+        build.ptr(t.partials), t.n_verts, build.stream())
+    build.check(rc, "graph_hat_vertex")
+    graph_hat_vertex.launches += 1
+    return p, ap, t.partials
+
+
+def graph_hat_apply(t, sq, scs, r, p_prev=None, beta=None):
+    """K11: (p, A_hat p, <p, A_hat p>) -- kernel on CUDA (the edge pass,
+    then the vertex pass, one C call), plain on CPU.  t: HatTables; beta is
+    a 0-d device tensor, given with p_prev; p is a new buffer (r itself
+    when p_prev is None)."""
+    if build.all_on_cpu(t.D, sq, scs, r, p_prev, beta):
+        return graph_hat_apply_plain(t, sq, scs, r, p_prev, beta)
+    _hat_checks("graph_hat_apply", t, sq=sq, scs=scs, r=r, p_prev=p_prev,
+                beta=beta)
+    p = torch.empty_like(r) if p_prev is not None else r
+    ap = torch.empty_like(r)
+    rc = build.library().opt_graph_hat_apply(
         build.ptr(t.D), build.ptr(t.idx), build.ptr(t.order),
-        build.ptr(t.rowptr), build.ptr(t.meta), t.meta.numel(),
-        build.ptr(sq), build.ptr(scs), build.ptr(r), build.ptr(p_prev),
-        build.ptr(beta), build.ptr(p) if p_prev is not None else None,
-        build.ptr(ap), build.ptr(parts), t.n_verts, build.stream())
+        build.ptr(t.rowptr), build.ptr(t.meta), t.meta_host_ptr,
+        t.meta.numel(), build.ptr(sq), build.ptr(scs), build.ptr(r),
+        build.ptr(p_prev), build.ptr(beta),
+        build.ptr(p) if p_prev is not None else None, build.ptr(ap),
+        build.ptr(t.c), build.ptr(t.partials), t.n_verts, build.stream())
     build.check(rc, "graph_hat_apply")
     graph_hat_apply.launches += 1
-    return p, ap, torch.sum(parts)
+    return p, ap, torch.sum(t.partials)
 
 
 graph_gather.launches = 0
 graph_scatter.launches = 0
+graph_hat_edge.launches = 0
+graph_hat_vertex.launches = 0
 graph_hat_apply.launches = 0
 
 
@@ -316,6 +453,9 @@ def plan_meta(plan):
         if len(g.exprs) > MAX_RESIDUALS:
             return None
         if g.kind == "graph":
+            if (len(leaves) > MAX_LEAVES
+                    or len(g.graph.slots) > MAX_SLOTS):
+                return None
             sidx = {s: i for i, s in enumerate(g.graph.slots)}
             graph_groups.append(dict(
                 gi=gi, gname=g.graph.name, slots=list(g.graph.slots),
@@ -332,8 +472,9 @@ def plan_meta(plan):
                                for a in leaves])
     if not graph_groups:
         return None
-    n_meta = 3 + 2 * len(unk) + sum(7 + 2 * len(gg["leaves"])
-                                    for gg in graph_groups)
+    n_meta = 3 + 2 * len(unk) + sum(
+        7 + 3 * len(gg["leaves"]) + 2 * len(gg["slots"])
+        for gg in graph_groups)
     if fit is not None:
         n_meta += 3 + len(fit["leaves"])
     if n_meta > META_MAX:
@@ -359,11 +500,17 @@ def supports(plan):
 class HatTables:
     """What K11 reads besides the vectors: the partials D of every group in
     one flat buffer (set each outer step), the slots' indices and CSR
-    incidences, the int table meta (its layout is in csrc/graph_kernels.cu),
-    and the same as structured views for the plain version:
+    incidences, the int table meta (its layout is in csrc/graph_kernels.cu)
+    on the device and as meta_host on the host, the scratch that its two
+    passes share, made once: c (the edge pass's rows, each slot's block at
+    a multiple of 4 floats) and partials (one float a vertex block); and
+    the same as structured views for the plain versions:
 
       graph  [(gi, n_res, leaves [(slot, unk)], D (n_leaves n_res, E),
                idx (n_slots, E))] per graph group
+      incidence  [[(order (E,), rowptr (N + 1,)) per slot]] per graph group
+      c_rows [[(E, L_s) view of c per slot]] per graph group, L_s the
+             leaves on slot s
       fit    (gi, n_res, leaves [unk], D (n_leaves n_res, N)) or None
       flat_index  (n_unk, N): element of unknown channel u at vertex w in
                   the flat vectors
@@ -382,7 +529,8 @@ class HatTables:
         # (group index, rows, row length, slot index stack) in D's order
         self._blocks = []
         idx, order, rowptr = [], [], []
-        d_off = i_off = rp_off = 0
+        self.incidence, c_blocks = [], []  # c_blocks: [[(off, E, L_s)]]
+        d_off = i_off = rp_off = c_off = 0
         for gg in meta["graph_groups"]:
             slots = gg["slots"]
             stack = torch.stack([data["graph_indices"][gg["gname"]][s]
@@ -391,6 +539,7 @@ class HatTables:
             E_ = stack.shape[1]
             rows = len(gg["leaves"]) * gg["n_res"]
             self._blocks.append((gg, rows, E_, stack))
+            self.incidence.append(csr)
             idx.append(stack.reshape(-1))
             order += [o for o, _ in csr]
             rowptr += [r for _, r in csr]
@@ -398,6 +547,12 @@ class HatTables:
                       i_off, rp_off]
             table += [s for s, _ in gg["leaves"]]
             table += [u for _, u in gg["leaves"]]
+            c_blocks.append([])
+            for k in range(len(slots)):
+                cols = [u for s, u in gg["leaves"] if s == k]
+                table += [c_off, len(cols)] + cols
+                c_blocks[-1].append((c_off, E_, len(cols)))
+                c_off += -(-E_ * len(cols) // 4) * 4  # 16-byte aligned
             d_off += rows * E_
             i_off += len(slots) * E_
             rp_off += len(slots) * (n_verts + 1)
@@ -408,11 +563,19 @@ class HatTables:
             table += [fit["n_res"], len(fit["leaves"]), d_off]
             table += list(fit["leaves"])
             d_off += rows * n_verts
-        if d_off >= 2 ** 31:
-            raise ValueError("graph engine: more than 2^31 - 1 partials")
+        if max(d_off, c_off, len(bases) * n_verts) >= 2 ** 31:
+            raise ValueError("graph engine: more than 2^31 - 1 partials, "
+                             "edge rows or unknowns")
         self.idx, self.order, self.rowptr = (torch.cat(ts)
                                              for ts in (idx, order, rowptr))
-        self.meta = torch.tensor(table, dtype=torch.int32).to(device)
+        self.meta_host = np.asarray(table, np.int32)
+        self.meta_host_ptr = self.meta_host.ctypes.data
+        self.meta = torch.as_tensor(self.meta_host).to(device)
+        self.c = torch.empty(c_off, dtype=torch.float32, device=device)
+        self.c_rows = [[self.c[o:o + e * w].view(e, w) for o, e, w in blk]
+                       for blk in c_blocks]
+        self.partials = torch.empty(-(-n_verts // VERTEX_THREADS),
+                                    dtype=torch.float32, device=device)
         self.D = None
         self.graph, self.fit = [], None
 

@@ -345,8 +345,9 @@ class Plan:
         if engine == "graph" and not graph_cuda.supports_plan(self):
             raise ValueError(
                 "engine='graph' holds f32 graph energies whose images share "
-                "one vertex space, with no Exclude and pointwise vertex "
-                "terms (ops/graph_cuda.plan_meta)")
+                "one vertex space, with no Exclude, pointwise vertex terms "
+                "and at most 32 leaves on 8 slots a graph group "
+                "(ops/graph_cuda.plan_meta)")
         if engine == "stream3d" and not vol_cuda.supports_energy(self):
             raise ValueError(
                 "engine='stream3d' holds only "

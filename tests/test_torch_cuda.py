@@ -430,6 +430,101 @@ def test_graph_kernels_refuse_bad_operands(dev):
     assert graph_cuda.graph_scatter.launches == k10
 
 
+def irregular_graph_inputs(seed=1):
+    """arap inputs on a 50-vertex graph that stresses K11's two passes: a
+    star vertex (0) with 40 edges each way, a chain of 8, vertex 49 on no
+    edge, E = 94 edges (not a multiple of the edge pass's 128-edge
+    block).  (inputs, dims)."""
+    nv = 50
+    star, chain = np.arange(1, 41), np.arange(41, 48)
+    v0 = np.concatenate([np.zeros(40, int), star, chain, chain + 1])
+    v1 = np.concatenate([star, np.zeros(40, int), chain + 1, chain])
+    rng = np.random.RandomState(seed)
+    ur = rng.randn(nv, 3).astype(np.float32)
+    cons = np.full((nv, 3), -1e7, np.float32)
+    cons[:10] = ur[:10] + 0.1
+    inputs = {"Offset": ur + 0.1 * rng.randn(nv, 3).astype(np.float32),
+              "Angle": (0.3 * rng.randn(nv, 3)).astype(np.float32),
+              "UrShape": ur, "Constraints": cons, "w_fitSqrt": 2.0,
+              "w_regSqrt": 1.0,
+              "G": {"v0": v0.astype(np.int32), "v1": v1.astype(np.int32)}}
+    return inputs, [nv, len(v0)]
+
+
+def _hat_tables(dev, case):
+    """(HatTables, vectors) on the card: arap's 19 x 19 mesh (the edge
+    pass's arap instantiation), embedded_mesh_deformation's (15 leaves, 12
+    on one slot: the generic edge kernel and the vertex pass's chunked
+    sum), or arap on irregular_graph_inputs."""
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+
+    if case == "arap":
+        tab, _, t = chip_smoke.graph_kernel_operands(torch, 19, dev, seed=9)
+        return tab, t
+    if case == "irregular":
+        name = "arap_mesh_deformation"
+        inputs, dims = irregular_graph_inputs()
+    else:
+        name = "embedded_mesh_deformation"
+        inputs = chip_smoke.arap_inputs(19, seed=9)
+        rng = np.random.RandomState(9)
+        inputs.pop("Angle")
+        inputs["RotMatrix"] = (np.tile(np.eye(3).reshape(1, 9), (361, 1))
+                               + 0.1 * rng.randn(361, 9)).astype(np.float32)
+        inputs["w_rotSqrt"] = 0.5
+        dims = [361, len(inputs["G"]["v0"])]
+    st = opt_tpu_torch.NewState(device="cuda")
+    plan = st.problem_plan(st.problem_define(getattr(energies, name),
+                                             "LMGPU"), dims)
+    x, data = plan.bind(inputs)
+    op = graph_cuda.GraphOperator(plan.funcs, data, plan.layout, True,
+                                  graph_cuda.plan_meta(plan))
+    op.outer(x)
+    rng = np.random.RandomState(10)
+    n = x.numel()
+    t = {k: torch.as_tensor(rng.randn(n).astype(np.float32), device=dev)
+         for k in ("r", "p")}
+    t["sq"] = torch.as_tensor(rng.rand(n).astype(np.float32), device=dev)
+    t["scs"] = t["sq"] * t["sq"] * 0.7
+    return op.tables, t
+
+
+HAT_CASES = ["arap", "embedded", "irregular"]
+
+
+@pytest.mark.parametrize("case", HAT_CASES)
+@pytest.mark.parametrize("prev", [False, True])
+def test_graph_hat_edge_kernel_matches_plain(dev, case, prev):
+    tab, t = _hat_tables(dev, case)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    extra = (t["p"], beta) if prev else ()
+    n = graph_cuda.graph_hat_edge.launches
+    got = graph_cuda.graph_hat_edge(tab, t["sq"], t["r"], *extra)
+    assert graph_cuda.graph_hat_edge.launches == n + 1
+    want = graph_cuda.graph_hat_edge_plain(tab, t["sq"], t["r"], *extra)
+    for rows, wrows in zip(got, want):
+        assert [r.shape for r in rows] == [w.shape for w in wrows]
+        _close(rows, wrows)
+
+
+@pytest.mark.parametrize("case", HAT_CASES)
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("lm", [False, True])
+def test_graph_hat_vertex_kernel_matches_plain(dev, case, lm, prev):
+    """The vertex pass on the plain edge pass's rows (copied into the
+    tables' buffer) against its plain version."""
+    tab, t = _hat_tables(dev, case)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    extra = (t["p"], beta) if prev else ()
+    c = graph_cuda.graph_hat_edge_plain(tab, t["sq"], t["r"], *extra)
+    args = (tab, c, t["sq"], t["scs"] if lm else None, t["r"])
+    n = graph_cuda.graph_hat_vertex.launches
+    got = [x.clone() for x in graph_cuda.graph_hat_vertex(*args, *extra)]
+    assert graph_cuda.graph_hat_vertex.launches == n + 1
+    _close(got, graph_cuda.graph_hat_vertex_plain(*args, *extra))
+
+
 @pytest.mark.parametrize("prev", [False, True])
 @pytest.mark.parametrize("lm", [False, True])
 def test_graph_hat_apply_kernel_matches_plain(dev, lm, prev):
@@ -442,6 +537,39 @@ def test_graph_hat_apply_kernel_matches_plain(dev, lm, prev):
     assert graph_cuda.graph_hat_apply.launches == n + 1
     assert (got[0] is t["r"]) == (not prev)
     _close(got, graph_cuda.graph_hat_apply_plain(*args, *extra))
+    # no atomics: the same bits on a second call, in the same scratch
+    c, parts = tab.c.data_ptr(), tab.partials.data_ptr()
+    again = graph_cuda.graph_hat_apply(*args, *extra)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert (tab.c.data_ptr(), tab.partials.data_ptr()) == (c, parts)
+
+
+@pytest.mark.parametrize("case", ["embedded", "irregular"])
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("lm", [False, True])
+def test_graph_hat_apply_on_other_shapes_matches_plain(dev, case, lm, prev):
+    """The apply where the edge pass takes its generic kernel (embedded) and
+    on a graph with an isolated vertex, a star of 40 and a ragged last
+    block (irregular)."""
+    tab, t = _hat_tables(dev, case)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    args = (tab, t["sq"], t["scs"] if lm else None, t["r"])
+    extra = (t["p"], beta) if prev else ()
+    got = graph_cuda.graph_hat_apply(*args, *extra)
+    _close(got, graph_cuda.graph_hat_apply_plain(*args, *extra))
+    again = graph_cuda.graph_hat_apply(*args, *extra)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_graph_partials_match_the_kernel_grid(dev):
+    """HatTables sizes partials from VERTEX_THREADS; the vertex pass's grid
+    is opt_graph_blocks(N)."""
+    from opt_tpu_torch.ops import build
+
+    for case in ("arap", "irregular"):
+        tab, _ = _hat_tables(dev, case)
+        assert (build.library().opt_graph_blocks(tab.n_verts)
+                == tab.partials.numel())
 
 
 def _arap_plan(kind, w, device="cuda", n_outer=3, n_linear=30, **state):
@@ -517,6 +645,27 @@ def test_graph_launch_failure_raises_through_solve(dev, monkeypatch):
     with pytest.raises(RuntimeError, match="graph_hat_apply: CUDA error"):
         plan.solve(chip_smoke.arap_inputs(19))
     assert plan.engine == "graph"
+    torch.cuda.synchronize()
+
+
+def test_graph_vertex_pass_failure_raises_through_solve(dev, monkeypatch):
+    """K11's second kernel refused (here: tables claiming 0 vertices, an
+    empty grid for the vertex pass, after an edge pass that launches)
+    raises out of Plan.solve with CUDA's error: no fallback."""
+    set_partials = graph_cuda.HatTables.set_partials
+
+    def no_vertices(self, D_groups):
+        set_partials(self, D_groups)
+        self.n_verts = 0
+
+    monkeypatch.setattr(graph_cuda.HatTables, "set_partials", no_vertices)
+    plan = _arap_plan("gaussNewtonGPU", 19, n_outer=1, n_linear=2)
+    n = graph_cuda.graph_hat_apply.launches
+    with pytest.raises(RuntimeError,
+                       match="graph_hat_apply: CUDA error 9 "):
+        plan.solve(chip_smoke.arap_inputs(19))
+    assert plan.engine == "graph"
+    assert graph_cuda.graph_hat_apply.launches == n
     torch.cuda.synchronize()
 
 
