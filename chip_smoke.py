@@ -39,7 +39,8 @@ Phases (any failure raises and the exit code is non-zero):
   9. hold the slice-3 kernels and modes against their plain versions at
      37x23x11 and 128^3: K6 vol_hat_apply (GN and LM, with and without
      p_prev), K7 vol_pipelined_sweep (GN and LM), K8 vol_linearize (J^T F
-     and diag, cost only, model cost);
+     and diag, cost only, model cost); and at 128^3 the profiler's device
+     time per launch of K6 in each mode beside its bound;
  10. run the slice-3 paths, volumetric ARAP at 128^3, 8x100, on
      bench.aux_volumetric's inputs, each with its own launch counts, its
      final cost against the JAX package's CPU value and its warm solve
@@ -47,8 +48,7 @@ Phases (any failure raises and the exit code is non-zero):
        GN through engine="auto"        -> "stream3d", pipelined (K6 + K7),
        GN with stream_variant classic  -> "stream3d", classic (K6 + K2 hat),
        LM through engine="auto"        -> "stream3d", pipelined (K6 + K7),
-     all with K8 for the outer step; and profile the GN pipelined and the
-     LM solves;
+     all with K8 for the outer step; and profile each of the three;
  11. hold the slice-4 kernels against their plain versions on arap's
      partials at the path's 102x102 triangulated mesh (10,404 vertices,
      61,610 edges) and on a 512x512 one (262,144 vertices, 1,568,770
@@ -102,7 +102,8 @@ Phases (any failure raises and the exit code is non-zero):
      paths' slab shapes, 2048x2048 and 128^3 on 4 slabs (the first, two
      interior and the last slab each held on its own): K15
      warp_slab_apply, K3's global-offset mode (J^T F and diag, cost only,
-     model cost), K16 vol_slab_apply, K8's global-offset mode;
+     model cost), K16 vol_slab_apply (and the profiler's device time per
+     launch of it beside its bound), K8's global-offset mode;
  16. run the slice-6 paths through Plan.solve(inputs, mesh=make_mesh(4)),
      the slab form of a mesh on the one card, each with its own launch
      counts (K15 or K16 against the count its loops make), its final cost
@@ -252,12 +253,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Operations per pixel, voxel or element of each kernel and mode, counted
 # from its source with a sincosf taken as 40: K1, K3, K4 and K5 evaluate
-# five rotations a pixel, K6, K7 and K8's full mode seven rotations (21
+# five rotations a pixel, K7 and K8's full mode seven rotations (21
 # sincosf) and twelve derivative products a voxel, K8's cost modes one
-# rotation and six products, K2 a few per element.
+# rotation and six products, K2 a few per element.  K6 and K16 count the
+# function's work, which their tile core does: one rotation a voxel (3
+# sincosf and its derivatives, 155) and six residuals (each G = dR/da e,
+# jv and both halves, about 110), the fit and the output (45).
 OPS = {"warp_jtj_apply": 280, "warp_linearize": 300,
        "warp_linearize(cost)": 100, "warp_hat_apply": 300,
-       "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 1600,
+       "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 860,
        "vol_pipelined_sweep": 1650, "vol_linearize": 1450,
        "vol_linearize(cost)": 300, "vol_linearize(model_cost)": 600,
        # per element (K12, K13 poisson) or pixel (K13 warp) an iteration:
@@ -778,14 +782,19 @@ def check_slab_kernels(torch, dev, reps):
     consts = nbytes(urv, consv, paramsv)
     angle = xv.view(S, 2, -1)[:, 1]
     own_vox, own_vec = S * n * VOL * VOL, 6 * S * n * VOL * VOL * 4
+    # K16 reads one halo plane a side of each extended slab (which holds
+    # gv[1] a side) and Constraints' channel 0 (its kFitValid test) on the
+    # own planes alone
+    ring = (n + 2) / (n + 2 * gv[1])
+    slab_apply_bytes = (int(ring * nbytes(urv, angle, tv["sq"], tv["p"]))
+                        + 4 * own_vox + nbytes(paramsv) + own_vec)
     cases = {
         "vol_slab_apply": (
             lambda: split(sc.vol_slab_apply(xv, urv, consv, paramsv,
                                             tv["sq"], tv["p"], gv)),
             lambda: split(sc.vol_slab_apply_plain(
                 xv, urv, consv, paramsv, tv["sq"], tv["p"], gv)),
-            consts + nbytes(angle, tv["sq"], tv["p"]) + own_vec,
-            OPS["vol_hat_apply"] * own_vox),
+            slab_apply_bytes, OPS["vol_hat_apply"] * own_vox),
         "vol_linearize(slab)": (
             lambda: split(sc.vol_slab_linearize(xv, urv, consv, paramsv,
                                                 gv)),
@@ -810,6 +819,8 @@ def check_slab_kernels(torch, dev, reps):
     print(f"slab kernels at {VOL}^3 on {S} slabs of {n} planes "
           f"(halo {gv[1]}):")
     out.update(check_cases(torch, cases, reps))
+    device_vs_bound(torch, out, {"vol_slab_apply": cases["vol_slab_apply"][0]},
+                    "vol_slab_apply_kernel", f"{VOL}^3 on {S} slabs")
     return out
 
 
@@ -825,6 +836,9 @@ def check_vol_kernels(torch, dev, dims, reps):
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     voxels, vec = Wv * Hv * Dv, nbytes(p)
     consts = nbytes(ur, cons, params)
+    # K6 and K7 read Constraints' channel 0 alone (its kFitValid test); K8
+    # reads all three
+    fit_consts = nbytes(ur, params) + nbytes(cons) // 3
     angle = x[x.numel() // 2:]
     hat_ops = OPS["vol_hat_apply"] * voxels
     sweep_ops = OPS["vol_pipelined_sweep"] * voxels
@@ -840,7 +854,8 @@ def check_vol_kernels(torch, dev, dims, reps):
                     x, ur, cons, params, sq, scs_m, t["r"], *extra),
                 lambda scs_m=scs_m, extra=extra: s3.vol_hat_apply_plain(
                     x, ur, cons, params, sq, scs_m, t["r"], *extra),
-                consts + nbytes(angle) + (3 + 2 * prev + lm) * vec, hat_ops)
+                fit_consts + nbytes(angle) + (3 + 2 * prev + lm) * vec,
+                hat_ops)
         consts_m = (x, ur, cons, params, sq, scs_m)
         b_hat = t["b"] if lm else None
         cases[f"vol_pipelined_sweep({mode})"] = (
@@ -848,7 +863,7 @@ def check_vol_kernels(torch, dev, dims, reps):
                        beta, b_hat),
             sweep_case(torch, s3.vol_pipelined_sweep_plain, consts_m, t,
                        alpha, beta, b_hat),
-            consts + nbytes(angle) + (13 + 2 * lm) * vec, sweep_ops)
+            fit_consts + nbytes(angle) + (13 + 2 * lm) * vec, sweep_ops)
     cases["vol_linearize"] = (
         lambda: vol_cuda.vol_linearize(x, ur, cons, params),
         lambda: vol_cuda.vol_linearize_plain(x, ur, cons, params),
@@ -864,7 +879,13 @@ def check_vol_kernels(torch, dev, dims, reps):
                                              delta=t["delta"]),
         consts + 2 * vec, OPS["vol_linearize(model_cost)"] * voxels)
     print(f"slice-3 kernels at {Wv}x{Hv}x{Dv}:")
-    return check_cases(torch, cases, reps)
+    out = check_cases(torch, cases, reps)
+    if dims == (VOL,) * 3:  # K6 in every mode, as the paths launch it
+        device_vs_bound(torch, out, {
+            name: case[0] for name, case in cases.items()
+            if name.startswith("vol_hat_apply")}, "vol_hat_apply_kernel",
+            f"{Wv}x{Hv}x{Dv}")
+    return out
 
 
 def new_graph_plan(opt_tpu_torch, energies, kind, w, device=DEVICE,
@@ -1116,6 +1137,31 @@ def device_us_per_launch(torch, fns, label, n=20):
             print(f"  device {name} ({label}): {us / count:.2f} us per "
                   f"launch, {count} of {n} launches  {key[:70]}")
     return out
+
+
+def device_vs_bound(torch, out, fns, symbol, label, tries=3):
+    """Device us per launch of each case's kernel (the profiler's row that
+    names symbol) beside the case's bound, kept as the case's device_ms.
+    A window in which the profiler saw no launch of the kernel is taken
+    again, up to tries windows; after that the case keeps no device_ms,
+    and says so."""
+    for name, fn in fns.items():
+        for _ in range(tries):
+            rows = device_us_per_launch(torch, {name: fn}, label)[name]
+            mine = [(count, us) for key, count, us in rows if symbol in key]
+            if mine:
+                break
+        if not mine:
+            print(f"  device {name} ({label}): the profiler saw no launch of "
+                  f"{symbol} in {tries} windows (not measured; the kernels "
+                  "line gives its CUDA events' time)")
+            continue
+        dev_us = mine[0][1] / mine[0][0]
+        out[name]["device_ms"] = dev_us / 1e3
+        bound_us = out[name]["bound_ms"] * 1e3
+        print(f"  device {name} ({label}): {dev_us:.2f} us a launch beside "
+              f"its bound {bound_us:.1f} us ({out[name]['bound_by']}), "
+              f"{100 * bound_us / dev_us:.1f}% of it")
 
 
 def host_us(torch, fn, n=1000):
@@ -1934,8 +1980,7 @@ def main():
         name = f"{label} {VOL_OUTER}x{VOL_LINEAR}"
         best = best_of_3(torch, plan, vol_inputs, "auto", f"{name} (warm)",
                          card)
-        if variant is None:  # the GN and LM paths engine="auto" picks
-            profile_solve(torch, plan, vol_inputs, "auto", name, card, best)
+        profile_solve(torch, plan, vol_inputs, "auto", name, card, best)
 
     # -- slice 4: the graph kernels, then arap at 10k vertices ------------
     print(f"[{time.perf_counter() - t_start:.1f} s] slice 4")
@@ -1997,9 +2042,13 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": total[name],
                      "max_abs_err": err,
-                     # K11: its two passes' profiled device time an apply
+                     # K6, K11 and K16: the profiled device time a launch
+                     # (K11: its two passes together); the CUDA events'
+                     # time a call where the profiler saw no launch
                      "ms": timings[case].get("device_ms",
                                              timings[case]["ms"]),
+                     "ms_from": ("profiler" if "device_ms" in timings[case]
+                                 else "cuda events"),
                      "plain_ms": timings[case]["plain_ms"],
                      "bound_ms": timings[case]["bound_ms"],
                      "bound_by": timings[case]["bound_by"],

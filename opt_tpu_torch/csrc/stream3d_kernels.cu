@@ -16,20 +16,24 @@
 // In the hat space A_hat = S (J^T J [+ CtC]) S with S = diag(sq),
 // sq = sqrt(pre), M_hat = I, so z == r and no preconditioner is read
 // (stream3d.py:51-54).  A_hat v = sq . J^T J (sq . v) + scs . v with
-// scs = sq^2 . ctc (LM) or absent (GN); J^T J is vol_energy.cuh's
-// vol_jtj_at.
+// scs = sq^2 . ctc (LM) or absent (GN).
 //
 // The TPU kernels stream (D, H) tile windows with a halo through VMEM, on
-// extents padded to (8, 128), and run their tiles in order; here every
-// block of 32 (W) x 8 (H) voxels of one D plane reads its one-voxel halo
-// in place from device memory (L1/L2 serve the overlap), on the unpadded
-// extents, with the InBounds guards as the zero fill, and the blocks run
-// in parallel in no order.  So no sweep updates in place across a halo: K6
-// forms p = r + beta p_prev at the centre and at the six neighbours it
-// reads, and writes p to a buffer other than p_prev; K7 reads w_in with its
-// halo and writes w_out, the two swapping each iteration (the TPU kernel's
-// A/B w slots).  K7's z, s, p, delta and r are read and written only at
-// the thread's own voxel, so they are updated in place.
+// extents padded to (8, 128), and run their tiles in order; here the
+// blocks run in parallel in no order, on the unpadded extents.  So no
+// sweep updates in place across a halo: K6 writes p to a buffer other than
+// p_prev; K7 reads w_in with its halo and writes w_out, the two swapping
+// each iteration (the TPU kernel's A/B w slots).  K7's z, s, p, delta and
+// r are read and written only at the thread's own voxel, so they are
+// updated in place.
+//
+// K6 (and K16 below) run on vol_tile.cuh's shared-memory core: a block
+// marches a 32 (W) x 8 (H) tile along D, reads each plane once, takes each
+// voxel's sincosf once and forms each residual once (the source note there
+// says what bounded the gather form and what the core does about it).  K7 keeps vol_energy.cuh's gather form, vol_jtj_at: one thread a
+// voxel of a 32 x 8 block of one D plane, its one-voxel halo read in place
+// from device memory (L1/L2 serve the overlap), the InBounds guards as the
+// zero fill, the operand formed at each neighbour it reads.
 //
 // The cross-block sums are per-block partials from a fixed shared-memory
 // tree, summed by the caller: repeated solves match bit for bit.  alpha and
@@ -38,37 +42,27 @@
 //
 // Bound on the card: device memory.  At 128^3 a flat vector is 50 MB, so
 // nothing stays in the 50 MB L2 between sweeps.  K6 reads the angles,
-// UrShape, Constraints (36 B per voxel), sq, r, p_prev (72 B) and, in LM,
-// scs (24 B), and writes p and A_hat p (48 B): 156-180 B per voxel,
-// 327-377 MB, 98-113 us at 3.35 TB/s.  K7 reads the angles and constants
-// (36 B), sq and w_in (48 B), reads and writes z, s, p, delta, r (240 B),
-// writes w_out (24 B), and in LM reads scs and b_hat (48 B): 348-396 B per
-// voxel, 730-830 MB, 218-248 us.  One thread per voxel keeps each vector
-// to one pass per sweep; the operand formed at a neighbour costs a few
-// extra flops and sincosf, not extra passes.
+// UrShape and Constraints' channel 0 (28 B per voxel: the applies test
+// only it), sq, r, p_prev (72 B) and, in LM, scs (24 B), and writes p and
+// A_hat p (48 B): 148-172 B per voxel, 310-361 MB, 93-108 us at
+// 3.35 TB/s.  K7 reads the same 28 B, sq and w_in (48 B), reads and
+// writes z, s, p, delta, r (240 B), writes w_out (24 B), and in LM reads
+// scs and b_hat (48 B): 340-388 B per voxel, 713-814 MB, 213-243 us.
 
-#include "vol_energy.cuh"
+#include "vol_tile.cuh"
 
 namespace {
 
-// sq . (r + beta p_prev) at a voxel (p_prev may be null: then beta is
-// taken as 0)
+// sq . w at a voxel: K7's operand at the neighbours vol_jtj_at reads
 struct VolHatRead {
-  const float* r;
-  const float* pprev;
+  const float* w;
   const float* sq;
-  float beta;
   int N;
   __device__ void operator()(int k, float vO[3], float vA[3]) const {
     for (int c = 0; c < 3; ++c) {
       const int iO = 3 * k + c, iA = 3 * N + 3 * k + c;
-      if (pprev != nullptr) {
-        vO[c] = sq[iO] * (r[iO] + beta * pprev[iO]);
-        vA[c] = sq[iA] * (r[iA] + beta * pprev[iA]);
-      } else {
-        vO[c] = sq[iO] * r[iO];
-        vA[c] = sq[iA] * r[iA];
-      }
+      vO[c] = sq[iO] * w[iO];
+      vA[c] = sq[iA] * w[iA];
     }
   }
 };
@@ -98,7 +92,56 @@ __device__ __forceinline__ void vol_hat_at(
   }
 }
 
-__global__ void __launch_bounds__(kVThreads)
+// K6's operand and output: v = r + beta p_prev (r alone with p_prev
+// null), a = sq . J^T J (sq . v) + scs . v, p_out = v, and <v, a>.  Its
+// raw data: r, p_prev and sq.
+struct HatIo {
+  static constexpr int kVecs = 3;
+  const float* __restrict__ r;
+  const float* __restrict__ pprev;
+  const float* __restrict__ sq;
+  const float* __restrict__ scs;
+  float* __restrict__ p_out;
+  float* __restrict__ ap;
+  float beta;
+  int N;
+  __device__ void fetch(int k, float* dst, int stride) const {
+    int idx[6];
+    unknown_idx(k, N, idx);
+    for (int c = 0; c < 6; ++c) {
+      tile_copy(dst, c, stride, r, idx[c]);
+      if (pprev != nullptr) tile_copy(dst, 6 + c, stride, pprev, idx[c]);
+      tile_copy(dst, 12 + c, stride, sq, idx[c]);
+    }
+  }
+  __device__ void operand(const float* src, int stride, float v[6],
+                          float s[6]) const {
+    for (int c = 0; c < 6; ++c) {
+      v[c] = pprev != nullptr
+                 ? src[c * stride] + beta * src[(6 + c) * stride]
+                 : src[c * stride];
+      s[c] = src[(12 + c) * stride];
+    }
+  }
+  __device__ float store(int, int, int, int k, const float jtj[6],
+                         const float v[6], const float s[6]) const {
+    int idx[6];
+    unknown_idx(k, N, idx);
+    float dot = 0.f;
+    for (int c = 0; c < 6; ++c) {
+      float a = s[c] * jtj[c];
+      if (scs != nullptr) a += scs[idx[c]] * v[c];
+      dot += v[c] * a;
+      if (p_out != nullptr) p_out[idx[c]] = v[c];
+      ap[idx[c]] = a;
+    }
+    return dot;
+  }
+};
+
+// K6 on the tile core (vol_tile.cuh): blockIdx.z is a chunk of kTileD
+// planes
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
 vol_hat_apply_kernel(const float* __restrict__ x,
                      const float* __restrict__ ur,
                      const float* __restrict__ cons,
@@ -110,30 +153,15 @@ vol_hat_apply_kernel(const float* __restrict__ x,
                      const float* __restrict__ beta_ptr,
                      float* __restrict__ p_out, float* __restrict__ ap,
                      float* __restrict__ partials, int D, int H, int W) {
-  __shared__ float sh[kVThreads];
+  __shared__ float sh[kTileThreads];
   const Vol g{D, H, W};
-  const int w = blockIdx.x * kVX + threadIdx.x;
-  const int h = blockIdx.y * kVY + threadIdx.y;
-  const int d = blockIdx.z;
   const int N = g.n();
-  const float beta = pprev != nullptr ? *beta_ptr : 0.f;
-  const VolHatRead read{r, pprev, sq, beta, N};
-  float dot = 0.f;
-  if (g.inside(d, h, w)) {
-    int idx[6];
-    unknown_idx(g.idx(d, h, w), N, idx);
-    float pk[6], a[6];
-    for (int c = 0; c < 6; ++c)
-      pk[c] = pprev != nullptr ? r[idx[c]] + beta * pprev[idx[c]]
-                               : r[idx[c]];
-    vol_hat_at(g, d, h, w, x, ur, cons, params, sq, scs, read, idx, pk, a);
-    for (int c = 0; c < 6; ++c) {
-      dot += pk[c] * a[c];
-      if (p_out != nullptr) p_out[idx[c]] = pk[c];
-      ap[idx[c]] = a[c];
-    }
-  }
-  const float s = vblock_sum(dot, sh);
+  const int c0 = blockIdx.z * kTileD, c1 = min(c0 + kTileD, D);
+  const HatIo io{r, pprev, sq, scs, p_out, ap,
+                 pprev != nullptr ? *beta_ptr : 0.f, N};
+  const float dot = vol_tile_march(g, c0, c1, x + 3 * N, ur, cons,
+                                   params[0], params[1], io);
+  const float s = vblock_sum<kTileThreads>(dot, sh);
   if (vthread_rank() == 0) partials[vblock_rank()] = s;
 }
 
@@ -162,7 +190,7 @@ vol_pipelined_sweep_kernel(const float* __restrict__ x,
   const int d = blockIdx.z;
   const int N = g.n();
   const float alpha = *alpha_ptr, beta = *beta_ptr;
-  const VolHatRead read{w_in, nullptr, sq, 0.f, N};
+  const VolHatRead read{w_in, sq, N};
   float gam = 0.f, dd = 0.f, q = 0.f;
   if (g.inside(d, h, w)) {
     int idx[6];
@@ -201,12 +229,49 @@ vol_pipelined_sweep_kernel(const float* __restrict__ x,
   }
 }
 
+// K16's operand and output: v = p in slab sb's arrays, a = sq . J^T J
+// (sq . p) at an own plane, written to the local layout.  Its raw data: p
+// and sq.
+struct SlabIo {
+  static constexpr int kVecs = 2;
+  const float* __restrict__ p;
+  const float* __restrict__ sq;
+  float* __restrict__ ap;
+  int N, sb, he, n, S, H, W;
+  __device__ void fetch(int k, float* dst, int stride) const {
+    int idx[6];
+    unknown_idx(k, N, idx);
+    for (int c = 0; c < 6; ++c) {
+      tile_copy(dst, c, stride, p, idx[c]);
+      tile_copy(dst, 6 + c, stride, sq, idx[c]);
+    }
+  }
+  __device__ void operand(const float* src, int stride, float v[6],
+                          float s[6]) const {
+    for (int c = 0; c < 6; ++c) {
+      v[c] = src[c * stride];
+      s[c] = src[(6 + c) * stride];
+    }
+  }
+  __device__ float store(int d, int h, int w, int, const float jtj[6],
+                         const float[6], const float s[6]) const {
+    const int ko = ((sb * n + d - he) * H + h) * W + w;
+    const int No = S * n * H * W;
+    for (int c = 0; c < 3; ++c) {
+      ap[3 * ko + c] = s[c] * jtj[c];
+      ap[3 * No + 3 * ko + c] = s[3 + c] * jtj[3 + c];
+    }
+    return 0.f;
+  }
+};
+
 // K16: A_hat p = sq . J^T J (sq . p) at the own planes of S extended D
-// slabs (VolSlabs in vol_energy.cuh; blockIdx.z = slab * n + own plane).
-// K6's apply without the beta step, scs or the dot: the slab loop adds
-// scs . p and takes the dots outside (opt_tpu/parallel/stream_shard.py:
-// 762-776).
-__global__ void __launch_bounds__(kVThreads)
+// slabs (VolSlabs in vol_energy.cuh), on the tile core: blockIdx.z =
+// slab * chunks + chunk of kTileD own planes, the chunk's face planes read
+// from the slab's own halo (he >= 1).  K6's apply without the beta step,
+// scs or the dot: the slab loop adds scs . p and takes the dots outside
+// (opt_tpu/parallel/stream_shard.py:762-776).
+__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
 vol_slab_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ ur,
                       const float* __restrict__ cons,
@@ -214,32 +279,17 @@ vol_slab_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ sq,
                       const float* __restrict__ p, float* __restrict__ ap,
                       int H, int W, VolSlabs sl) {
-  const int sb = blockIdx.z / sl.n, dc = blockIdx.z % sl.n;
+  const int chunks = (sl.n + kTileD - 1) / kTileD;
+  const int sb = blockIdx.z / chunks, ch = blockIdx.z % chunks;
   const Vol g = sl.vol(sb, H, W);
-  const int w = blockIdx.x * kVX + threadIdx.x;
-  const int h = blockIdx.y * kVY + threadIdx.y;
-  if (h >= H || w >= W) return;
   const int N = g.n();
-  // this slab's arrays
+  const int c0 = sl.he + ch * kTileD;
+  const int c1 = sl.he + min((ch + 1) * kTileD, sl.n);
   const float* xs = x + (size_t)sb * 6 * N;
-  const float* urs = ur + (size_t)sb * 3 * N;
-  const float* cs = cons + (size_t)sb * 3 * N;
-  const float* sqs = sq + (size_t)sb * 6 * N;
-  const float* ps = p + (size_t)sb * 6 * N;
-  const int d = sl.he + dc;
-  int idx[6];
-  unknown_idx(g.idx(d, h, w), N, idx);
-  float pk[6], a[6];
-  for (int c = 0; c < 6; ++c) pk[c] = ps[idx[c]];
-  vol_hat_at(g, d, h, w, xs, urs, cs, params, sqs, nullptr,
-             VolHatRead{ps, nullptr, sqs, 0.f, N}, idx, pk, a);
-  // the own voxel in the local layout
-  const int ko = ((sb * sl.n + dc) * H + h) * W + w;
-  const int No = sl.S * sl.n * H * W;
-  for (int c = 0; c < 3; ++c) {
-    ap[3 * ko + c] = a[c];
-    ap[3 * No + 3 * ko + c] = a[3 + c];
-  }
+  const SlabIo io{p + (size_t)sb * 6 * N, sq + (size_t)sb * 6 * N, ap, N,
+                  sb, sl.he, sl.n, sl.S, H, W};
+  vol_tile_march(g, c0, c1, xs + 3 * N, ur + (size_t)sb * 3 * N,
+                 cons + (size_t)sb * 3 * N, params[0], params[1], io);
 }
 
 }  // namespace
@@ -254,11 +304,20 @@ extern "C" int opt_vol_hat_apply(const float* x, const float* ur,
                                  const float* beta, float* p_out, float* ap,
                                  float* partials, int D, int H, int W,
                                  void* stream) {
-  vol_hat_apply_kernel<<<vol_grid(D, H, W), dim3(kVX, kVY), 0,
-                         (cudaStream_t)stream>>>(
+  constexpr size_t smem = vol_tile_smem<HatIo>();
+  const cudaError_t err = vol_tile_prepare(vol_hat_apply_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  vol_hat_apply_kernel<<<vol_tile_grid(1, D, H, W), dim3(kTileW, kTileH),
+                         smem, (cudaStream_t)stream>>>(
       x, ur, cons, params, sq, scs, r, pprev, beta, p_out, ap, partials, D,
       H, W);
   return (int)cudaGetLastError();
+}
+
+// K6's dot partials: one a block of its grid
+extern "C" int opt_vol_hat_blocks(int D, int H, int W) {
+  const dim3 gr = vol_tile_grid(1, D, H, W);
+  return (int)(gr.x * gr.y * gr.z);
 }
 
 // scs is null for GN; b_hat and q_partials are null together outside LM
@@ -284,8 +343,11 @@ extern "C" int opt_vol_slab_apply(const float* x, const float* ur,
                                   const float* sq, const float* p, float* ap,
                                   int S, int n, int he, int H, int W, int d0,
                                   int Dg, void* stream) {
-  vol_slab_apply_kernel<<<vol_grid(S * n, H, W), dim3(kVX, kVY), 0,
-                          (cudaStream_t)stream>>>(
+  constexpr size_t smem = vol_tile_smem<SlabIo>();
+  const cudaError_t err = vol_tile_prepare(vol_slab_apply_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  vol_slab_apply_kernel<<<vol_tile_grid(S, n, H, W), dim3(kTileW, kTileH),
+                          smem, (cudaStream_t)stream>>>(
       x, ur, cons, params, sq, p, ap, H, W, VolSlabs{S, n, he, d0, Dg});
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 // The volumetric ARAP energy (opt_tpu_torch/energies.py:
 // volumetric_mesh_deformation) in closed form: the rotation, its
 // derivatives and the J^T J apply at one voxel, shared by K8
-// (vol_kernels.cu) and by K6 and K7 (stream3d_kernels.cu).
+// (vol_kernels.cu) and K7 (stream3d_kernels.cu); K6 and K16 run on
+// vol_tile.cuh's core, which uses the rotation and residual pieces here.
 //
 // The energy, for voxel v and stencil offset o in the energy's order
 // (+W, -W, +H, -H, +D, -D), n = v + o:
@@ -45,13 +46,14 @@ __device__ __forceinline__ int vblock_rank() {
   return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
 
-// Sum over the block's threads by a fixed shared-memory tree (the same
-// order on every run: no float atomics); every thread gets the sum.
+// Sum over the block's kThreads threads by a fixed shared-memory tree (the
+// same order on every run: no float atomics); every thread gets the sum.
+template <int kThreads = kVThreads>
 __device__ __forceinline__ float vblock_sum(float v, float* sh) {
   const int t = vthread_rank();
   sh[t] = v;
   __syncthreads();
-  for (int s = kVThreads / 2; s > 0; s >>= 1) {
+  for (int s = kThreads / 2; s > 0; s >>= 1) {
     if (t < s) sh[t] += sh[t + s];
     __syncthreads();
   }

@@ -55,6 +55,7 @@ SIGNATURES = {
     "opt_pcg_update": [_P] * 12 + [_I, _I, _P],
     "opt_vol_blocks": [_I, _I, _I],
     "opt_vol_linearize": [_P] * 8 + [_I] * 4 + [_P],
+    "opt_vol_hat_blocks": [_I, _I, _I],
     "opt_vol_hat_apply": [_P] * 12 + [_I] * 3 + [_P],
     "opt_vol_pipelined_sweep": [_P] * 19 + [_I] * 3 + [_P],
     "opt_graph_gather": [_P] * 3 + [_I] * 3 + [_P],

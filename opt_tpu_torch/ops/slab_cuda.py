@@ -34,11 +34,15 @@ csrc/vol_energy.cuh Vol).
 Bound on the card: device memory.  K15 reads the extended x, sq and p
 (36 B a pixel), UrShape, Constraints and Mask (20 B) and writes A_hat p
 (12 B); at 2048^2 on 4 slabs of 512 + 2 x 2 rows, 285 MB a launch.  K16
-reads 72 + 24 B a voxel and writes 24 B.  One thread per own pixel or
-voxel, K4's and K6's gather-form apply (no thread writes another's
-output); no reductions inside: the slab loop takes its dots outside, as
-the TPU kernel's loop does.  K3 and K8 keep their per-block cost partials,
-in slab order, summed per slab by the wrappers.
+reads the angles, UrShape, sq and p (72 B a voxel) on its own planes and
+one halo plane a side, Constraints' channel 0 (4 B) on its own planes,
+and writes 24 B: at 128^3 on 4 slabs of 32 + 2 x 2 planes, 219 MB a
+launch.  K15 is K4's gather-form apply, one thread per own pixel (no
+thread writes another's output); K16 runs on K6's shared-memory tile core
+(csrc/vol_tile.cuh), a block marching a tile of columns through a chunk
+of own planes.  No reductions inside: the slab loop takes its dots
+outside, as the TPU kernel's loop does.  K3 and K8 keep their per-block
+cost partials, in slab order, summed per slab by the wrappers.
 
 Beside each wrapper sits its plain torch version (the *_plain functions),
 built on the whole-grid plain versions with the global bounds; the

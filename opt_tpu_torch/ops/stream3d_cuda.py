@@ -28,7 +28,8 @@ volume this card holds at the sizes the port runs: the whole 128^3 state
 is under 1 GB).  Not ported: the TPU's (8, 128) padding and its
 real-domain mask, the VMEM and HBM budget models and the tile search, the
 strip-mined outer (ops/stream_outer.py).  The kernels work on the unpadded
-extents and read their one-voxel halo in place.  The kernel wrappers run
+extents: K6 on csrc/vol_tile.cuh's shared-memory tile core, K7 reading its
+one-voxel halo in place.  The kernel wrappers run
 their plain torch versions (vol_hat_apply_plain, vol_pipelined_sweep_plain)
 for CPU tensors, so on a CPU plan engine="stream3d" runs both backends on
 the plain versions.
@@ -115,7 +116,7 @@ def vol_hat_apply(x, ur, cons, params, sq, scs, r, p_prev=None, beta=None):
     lib = build.library()
     p = torch.empty_like(r) if p_prev is not None else r
     ap = torch.empty_like(r)
-    parts = torch.empty(lib.opt_vol_blocks(D, H, W), dtype=r.dtype,
+    parts = torch.empty(lib.opt_vol_hat_blocks(D, H, W), dtype=r.dtype,
                         device=r.device)
     rc = lib.opt_vol_hat_apply(
         build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(params),

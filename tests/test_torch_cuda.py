@@ -306,9 +306,10 @@ def test_stream3d_backends_agree_on_the_card(dev, kind):
 
 
 def test_stream3d_launch_failure_raises_with_no_fallback(dev):
-    """A volume of more D planes than a grid's z extent (65,535) makes
-    every volume kernel's launch fail: K8 raises out of Plan.solve, whose
-    first step is the cost, and K6 and K7 raise from their wrappers."""
+    """A volume of more D planes than a grid's z extent (65,535) makes K8
+    and K7 fail to launch: K8 raises out of Plan.solve, whose first step is
+    the cost, and K7 from its wrapper.  K6 marches chunks of planes, so it
+    fails past 65,535 chunks and raises from its wrapper."""
     D = 70000
     plan = _vol_plan("gaussNewtonGPU", (1, 1, D), 1, 2)
     rng = np.random.RandomState(0)
@@ -325,8 +326,11 @@ def test_stream3d_launch_failure_raises_with_no_fallback(dev):
     op = plan._operator("stream3d", data)
     v = torch.ones_like(x)
     op._x = x
+    Dk = 65536 * _hat_chunk()
+    vk = torch.ones(6 * Dk, device=dev)
+    urk = torch.zeros(Dk, 1, 1, 3, device=dev)
     with pytest.raises(RuntimeError, match="vol_hat_apply: CUDA error"):
-        stream3d_cuda.vol_hat_apply(x, op.ur, op.cons, op.params, v, None, v)
+        stream3d_cuda.vol_hat_apply(vk, urk, urk, op.params, vk, None, vk)
     zero = torch.zeros((), device=dev)
     with pytest.raises(RuntimeError,
                        match="vol_pipelined_sweep: CUDA error"):
@@ -335,6 +339,120 @@ def test_stream3d_launch_failure_raises_with_no_fallback(dev):
             v.clone(), v.clone(), v.clone(), v.clone(), v.clone(), zero,
             zero)
     torch.cuda.synchronize()
+
+
+# K6 and K16 on the tile core (csrc/vol_tile.cuh): ragged 32x8 tiles, one
+# plane, one plane past a block's chunk of planes, and the paths' 128^3
+TILE_SHAPES = ["33x9x1", "33x9xchunk+1", "128^3"]
+
+
+def _hat_chunk():
+    """The planes a K6 block marches (kTileD), from its grid."""
+    from opt_tpu_torch.ops import build
+
+    return 65536 // build.library().opt_vol_hat_blocks(65536, 1, 1)
+
+
+def _tile_dims(shape):
+    if shape == "128^3":
+        return (chip_smoke.VOL,) * 3
+    W, H, D = shape.split("x")
+    return int(W), int(H), _hat_chunk() + 1 if D == "chunk+1" else int(D)
+
+
+def _k6_partials(x, ur, cons, params, sq, scs, r, p_prev, beta):
+    """K6 through its C entry: (p or None, A_hat p, the dot partials)."""
+    from opt_tpu_torch.ops import build
+
+    lib = build.library()
+    D, H, W = ur.shape[:3]
+    p = None if p_prev is None else torch.empty_like(r)
+    ap = torch.empty_like(r)
+    parts = torch.empty(lib.opt_vol_hat_blocks(D, H, W), device=r.device)
+    ptr = build.ptr
+    build.check(lib.opt_vol_hat_apply(
+        ptr(x), ptr(ur), ptr(cons), ptr(params), ptr(sq), ptr(scs), ptr(r),
+        ptr(p_prev), ptr(beta), ptr(p), ptr(ap), ptr(parts), D, H, W,
+        build.stream()), "vol_hat_apply")
+    return p, ap, parts
+
+
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_vol_hat_apply_tile_core_matches_plain_and_repeats(dev, shape, lm,
+                                                          prev):
+    x, ur, cons, params, t = chip_smoke.volume_kernel_operands(
+        torch, *_tile_dims(shape), dev, seed=7)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    args = (x, ur, cons, params, t["sq"], t["scs"] if lm else None, t["r"])
+    extra = (t["p"], beta) if prev else ()
+    n = stream3d_cuda.vol_hat_apply.launches
+    got = stream3d_cuda.vol_hat_apply(*args, *extra)
+    assert stream3d_cuda.vol_hat_apply.launches == n + 1
+    _close(got, stream3d_cuda.vol_hat_apply_plain(*args, *extra))
+    # two calls: the same outputs and dot partials, bit for bit
+    a = _k6_partials(*args, *(extra or (None, None)))
+    b = _k6_partials(*args, *(extra or (None, None)))
+    for u, v in zip(a, b):
+        assert (u is None and v is None) or torch.equal(u, v)
+    assert torch.equal(a[1], got[1])
+    assert float(torch.sum(a[2])) == float(got[2])
+
+
+@pytest.mark.parametrize("shape", TILE_SHAPES)
+def test_vol_operator_apply_on_the_tile_core(dev, shape):
+    """VolOperator.apply: K6 with sq = 1, ctc as scs and no p_prev."""
+    x, ur, cons, params, t = chip_smoke.volume_kernel_operands(
+        torch, *_tile_dims(shape), dev, seed=8)
+    op = vol_cuda.VolOperator({
+        "images": {"UrShape": ur, "Constraints": cons},
+        "params": {"w_fitSqrt": params[0], "w_regSqrt": params[1]}})
+    op._x = x
+    for ctc in (None, t["scs"]):
+        _close(op.apply(t["p"], ctc), vol_cuda.vol_jtj_apply_plain(
+            x, t["p"], ur, cons, op.params, ctc))
+
+
+@pytest.mark.parametrize("n", ["1", "chunk+1"])
+def test_vol_slab_apply_tile_core_matches_plain_and_repeats(dev, n):
+    """K16 on 3 slabs of one plane, and of one plane past a chunk."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    n = _hat_chunk() + 1 if n == "chunk+1" else int(n)
+    x, ur, cons, params, t, g = chip_smoke.vol_slab_operands(
+        torch, 33, 9, 3 * n, 3, dev, seed=10)
+    assert g[:2] == (n, 2)
+    for s in (None, 0, 1, 2):
+        (xs, urs, cs, sq, p), gs = (
+            ((x, ur, cons, t["sq"], t["p"]), g) if s is None
+            else _alone((x, ur, cons, t["sq"], t["p"]), s, g))
+        got = sc.vol_slab_apply(xs, urs, cs, params, sq, p, gs)
+        _close([got], [sc.vol_slab_apply_plain(xs, urs, cs, params, sq, p,
+                                                gs)])
+        assert torch.equal(got, sc.vol_slab_apply(xs, urs, cs, params, sq,
+                                                  p, gs))
+
+
+def test_vol_tile_kernels_refuse_misshaped_calls(dev):
+    """A misshaped operand or slab geometry raises before any launch."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    x, ur, cons, params, t = chip_smoke.volume_kernel_operands(
+        torch, 33, 9, 3, dev, seed=7)
+    n = stream3d_cuda.vol_hat_apply.launches
+    with pytest.raises(ValueError, match="vol_hat_apply"):
+        stream3d_cuda.vol_hat_apply(x, ur, cons, params, t["sq"][:-6], None,
+                                    t["r"])
+    with pytest.raises(ValueError, match="p_prev and beta"):
+        stream3d_cuda.vol_hat_apply(x, ur, cons, params, t["sq"], None,
+                                    t["r"], t["p"])
+    assert stream3d_cuda.vol_hat_apply.launches == n
+    xs, urs, cs, ps, ts, g = chip_smoke.vol_slab_operands(
+        torch, 33, 9, 6, 3, dev, seed=10)
+    with pytest.raises(ValueError, match="vol_slab_apply"):
+        sc.vol_slab_apply(xs, urs, cs, ps, ts["sq"], ts["p"],
+                          (g[0], 1, g[2], g[3]))
 
 
 # the slice-4 kernels: meshes whose vertex and edge counts leave ragged
