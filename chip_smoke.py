@@ -7,10 +7,11 @@ Phases (any failure raises and the exit code is non-zero):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from opt_tpu_torch/csrc (one nvcc per source,
      all started together) and print the seconds;
-  3. hold K1 warp_jtj_apply, K2 pcg_update and K3 warp_linearize against
-     their plain torch versions on the card at 512x512, on seeded inputs
-     with one excluded pixel and a constraint band, and time both with
-     CUDA events;
+  3. hold K1 warp_jtj_apply (GN and with LM's ctc), K2 pcg_update and K3
+     warp_linearize against their plain torch versions on the card at
+     512x512, on seeded inputs with one excluded pixel and a constraint
+     band, time both with CUDA events, and print the profiler's device
+     time per launch of K1 in both modes beside its bound;
   4. run the first path: image_warping 512x512, Gauss-Newton 8 outer x
      400 PCG iterations, through NewState(device="cuda") ... plan.solve
      with engine="auto"; check that it picked the CUDA engine, that every
@@ -23,8 +24,9 @@ Phases (any failure raises and the exit code is non-zero):
      share;
   6. hold the slice-2 kernels and modes against their plain versions at
      2048x2048: K4 warp_hat_apply (GN, and LM with scs), K5
-     warp_pipelined_sweep (GN, and its LM mode), K1 with LM's ctc, K3's
-     model cost, K2's hat mode (GN and LM);
+     warp_pipelined_sweep (GN, and its LM mode), K1 (GN and with LM's
+     ctc, and the profiler's device time per launch of both beside its
+     bound), K3's model cost, K2's hat mode (GN and LM);
   7. run the slice-2 paths through engine="auto", each with its own
      launch counts zeroed just before it and read just after, its final
      cost held against the JAX package's CPU value:
@@ -102,8 +104,8 @@ Phases (any failure raises and the exit code is non-zero):
      paths' slab shapes, 2048x2048 and 128^3 on 4 slabs (the first, two
      interior and the last slab each held on its own): K15
      warp_slab_apply, K3's global-offset mode (J^T F and diag, cost only,
-     model cost), K16 vol_slab_apply (and the profiler's device time per
-     launch of it beside its bound), K8's global-offset mode;
+     model cost), K16 vol_slab_apply, K8's global-offset mode, and the
+     profiler's device time per launch of K15 and K16 beside their bounds;
  16. run the slice-6 paths through Plan.solve(inputs, mesh=make_mesh(4)),
      the slab form of a mesh on the one card, each with its own launch
      counts (K15 or K16 against the count its loops make), its final cost
@@ -252,14 +254,18 @@ RIGID_COST_MAX = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Operations per pixel, voxel or element of each kernel and mode, counted
-# from its source with a sincosf taken as 40: K1, K3, K4 and K5 evaluate
-# five rotations a pixel, K7 and K8's full mode seven rotations (21
-# sincosf) and twelve derivative products a voxel, K8's cost modes one
-# rotation and six products, K2 a few per element.  K6 and K16 count the
-# function's work, which their tile core does: one rotation a voxel (3
-# sincosf and its derivatives, 155) and six residuals (each G = dR/da e,
-# jv and both halves, about 110), the fit and the output (45).
-OPS = {"warp_jtj_apply": 280, "warp_linearize": 300,
+# from its source with a sincosf taken as 40: K3, K4 and K5 evaluate five
+# rotations a pixel, K7 and K8's full mode seven rotations (21 sincosf)
+# and twelve derivative products a voxel, K8's cost modes one rotation
+# and six products, K2 a few per element.  K1, K15, K6 and K16 count the
+# function's work, which their march and tile cores do.  K1: one rotation
+# a pixel (40) and four residuals (each G = R'(a) e, jp and both halves,
+# about 26), the fit, LM's ctc and the dot (16); K15 the same, with
+# sq . p in and sq . a out and no dot.  K6 and K16: one rotation a voxel
+# (3 sincosf and its derivatives, 155) and six residuals (each G = dR/da
+# e, jv and both halves, about 110), the fit and the output (45).
+OPS = {"warp_jtj_apply": 160, "warp_slab_apply": 166,
+       "warp_linearize": 300,
        "warp_linearize(cost)": 100, "warp_hat_apply": 300,
        "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 860,
        "vol_pipelined_sweep": 1650, "vol_linearize": 1450,
@@ -527,12 +533,9 @@ def check_kernels(torch, dev):
     consts = nbytes(ur, cons, mask, params)
     angle = x[2 * W * H:]
     px, n = W * H, p.numel()
-    return check_cases(torch, {
-        "warp_jtj_apply": (
-            lambda: warp_cuda.warp_jtj_apply(x, p, ur, cons, mask, params),
-            lambda: warp_cuda.warp_jtj_apply_plain(x, p, ur, cons, mask,
-                                                   params),
-            consts + nbytes(angle, p, p), OPS["warp_jtj_apply"] * px),
+    cases = {
+        **jtj_apply_cases(warp_cuda, x, ur, cons, mask, params, t,
+                          ("warp_jtj_apply", "warp_jtj_apply(ctc, 512)")),
         "warp_linearize": (
             lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params),
             lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask,
@@ -556,7 +559,29 @@ def check_kernels(torch, dev):
             lambda: k2.pcg_update_plain(alpha, p, t["ap"], t["delta"],
                                         t["r"], t["pre"], t["b"]),
             9 * nbytes(p), OPS["pcg_update"] * n),
-    }, TIMING_REPS)
+    }
+    out = check_cases(torch, cases, TIMING_REPS)
+    device_vs_bound(torch, out, {k: cases[k][0] for k in cases
+                                 if k.startswith("warp_jtj_apply")},
+                    "warp_jtj_apply_kernel", f"{W}x{H}")
+    return out
+
+
+def jtj_apply_cases(warp_cuda, x, ur, cons, mask, params, t, names):
+    """K1's check cases, GN and with LM's ctc, under the two names:
+    (kernel, plain, bytes, operations)."""
+    H, W = mask.shape[:2]
+    p, angle = t["p"], x[2 * H * W:]
+    cases = {}
+    for name, ctc in zip(names, (None, t["ctc"])):
+        cases[name] = (
+            lambda ctc=ctc: warp_cuda.warp_jtj_apply(x, p, ur, cons, mask,
+                                                     params, ctc),
+            lambda ctc=ctc: warp_cuda.warp_jtj_apply_plain(
+                x, p, ur, cons, mask, params, ctc),
+            nbytes(ur, cons, mask, params, angle, p, ctc, p),
+            OPS["warp_jtj_apply"] * H * W)
+    return cases
 
 
 def sweep_case(torch, fn, consts, t, alpha, beta, b_hat=None):
@@ -614,12 +639,9 @@ def check_big_kernels(torch, dev):
             *sweeps(False), consts + nbytes(angle) + 13 * vec, sweep_ops),
         "warp_pipelined_sweep(lm)": (
             *sweeps(True), consts + nbytes(angle) + 15 * vec, sweep_ops),
-        "warp_jtj_apply(ctc)": (
-            lambda: warp_cuda.warp_jtj_apply(x, p, ur, cons, mask, params,
-                                             t["ctc"]),
-            lambda: warp_cuda.warp_jtj_apply_plain(x, p, ur, cons, mask,
-                                                   params, t["ctc"]),
-            consts + nbytes(angle) + 3 * vec, OPS["warp_jtj_apply"] * px),
+        **jtj_apply_cases(warp_cuda, x, ur, cons, mask, params, t,
+                          ("warp_jtj_apply(2048)",
+                           "warp_jtj_apply(ctc, 2048)")),
         "warp_linearize(model_cost)": (
             lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params,
                                              delta=t["delta"]),
@@ -639,7 +661,11 @@ def check_big_kernels(torch, dev):
                                         t["r"], None, t["b"]),
             7 * vec, OPS["pcg_update"] * p.numel()),
     }
-    return check_cases(torch, cases, BIG_TIMING_REPS)
+    out = check_cases(torch, cases, BIG_TIMING_REPS)
+    device_vs_bound(torch, out, {k: cases[k][0] for k in cases
+                                 if k.startswith("warp_jtj_apply")},
+                    "warp_jtj_apply_kernel", f"{BIG}x{BIG}")
+    return out
 
 
 def volume_kernel_operands(torch, W, H, D, dev, seed=1):
@@ -740,14 +766,18 @@ def check_slab_kernels(torch, dev, reps):
     consts = nbytes(ur, cons, mask, params)
     angle = x.view(S, 3, -1)[:, 2]  # each slab's Angle rows
     own_px, own_vec = S * n * BIG, 3 * S * n * BIG * 4
+    # K15 reads one halo row a side of each extended slab (which holds he
+    # a side) and Constraints at the own pixels alone
+    ring = (n + 2) / (n + 2 * he)
+    slab_apply_bytes = (int(ring * nbytes(ur, mask, angle, t["sq"], t["p"]))
+                        + 8 * own_px + nbytes(params) + own_vec)
     cases = {
         "warp_slab_apply": (
             lambda: split(sc.warp_slab_apply(x, ur, cons, mask, params,
                                              t["sq"], t["p"], g)),
             lambda: split(sc.warp_slab_apply_plain(
                 x, ur, cons, mask, params, t["sq"], t["p"], g)),
-            consts + nbytes(angle, t["sq"], t["p"]) + own_vec,
-            OPS["warp_hat_apply"] * own_px),
+            slab_apply_bytes, OPS["warp_slab_apply"] * own_px),
         "warp_linearize(slab)": (
             lambda: split(sc.warp_slab_linearize(x, ur, cons, mask, params,
                                                  g)),
@@ -772,6 +802,9 @@ def check_slab_kernels(torch, dev, reps):
     print(f"slab kernels at {BIG}x{BIG} on {S} slabs of {n} rows "
           f"(halo {he}):")
     out = check_cases(torch, cases, reps)
+    device_vs_bound(torch, out,
+                    {"warp_slab_apply": cases["warp_slab_apply"][0]},
+                    "warp_slab_apply_kernel", f"{BIG}x{BIG} on {S} slabs")
 
     xv, urv, consv, paramsv, tv, gv = vol_slab_operands(
         torch, VOL, VOL, VOL, S, dev)
@@ -2042,9 +2075,10 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": total[name],
                      "max_abs_err": err,
-                     # K6, K11 and K16: the profiled device time a launch
-                     # (K11: its two passes together); the CUDA events'
-                     # time a call where the profiler saw no launch
+                     # K1, K6, K11, K15 and K16: the profiled device time
+                     # a launch (K11: its two passes together); the CUDA
+                     # events' time a call where the profiler saw no
+                     # launch
                      "ms": timings[case].get("device_ms",
                                              timings[case]["ms"]),
                      "ms_from": ("profiler" if "device_ms" in timings[case]

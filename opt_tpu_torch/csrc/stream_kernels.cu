@@ -43,9 +43,11 @@
 // writes z, s, p, delta, r (about 100 B in, 72 B out per pixel; in LM
 // also scs and b_hat, 24 B in).  One thread per pixel with neighbour reads from L1/L2 keeps each vector to one
 // pass per sweep; the operand formed at a neighbour costs a few extra
-// flops, not extra passes.
+// flops, not extra passes.  K15 (below) runs on warp_tile.cuh's
+// row-marching core, as K1 does.
 
 #include "warp_energy.cuh"
+#include "warp_tile.cuh"
 
 namespace {
 
@@ -200,11 +202,44 @@ warp_pipelined_sweep_kernel(const float* __restrict__ x,
   }
 }
 
-// K15: A_hat p = sq . J^T J (sq . p) at the own rows of S extended slabs,
-// one slab per blockIdx.z (Slabs in warp_energy.cuh).  K4's apply without
-// the beta step, scs or the dot: the slab loop adds scs . p and takes the
-// dots outside (opt_tpu/parallel/stream_shard.py:313-329).
-__global__ void __launch_bounds__(kThreads)
+// K15's operand and output: v = sq . p in slab sb's arrays; A_hat p =
+// sq . J^T J (sq . p) at an own row, written to the local layout.  Its raw
+// data: sq and p.
+struct SlabApplyIo {
+  static constexpr int kRaw = 6;
+  const float* __restrict__ sq;
+  const float* __restrict__ p;
+  float* __restrict__ ap;
+  int W, HW;
+  int row_off;  // local row of array row 0: sb n - he
+  int No;       // own pixels of all slabs: S n W
+  __device__ void fetch(int k, bool, bool pairs, float* r) const {
+    ld_pair(sq, k, pairs, &r[0], &r[1]);
+    r[2] = __ldg(sq + 2 * HW + k);
+    ld_pair(p, k, pairs, &r[3], &r[4]);
+    r[5] = __ldg(p + 2 * HW + k);
+  }
+  __device__ void operand(const float* r, Pix& px) const {
+    px.v0 = r[0] * r[3], px.v1 = r[1] * r[4], px.vA = r[2] * r[5];
+    px.x0 = r[0], px.x1 = r[1], px.xA = r[2];
+  }
+  __device__ float store(int i, int j, const Pix& px, bool pairs) const {
+    const int ko = (row_off + i) * W + j;
+    float a0 = 0.f, a1 = 0.f, aA = 0.f;
+    if (px.keep) a0 = px.x0 * px.a0, a1 = px.x1 * px.a1, aA = px.xA * px.aA;
+    st_pair(ap, ko, pairs, a0, a1);
+    ap[2 * No + ko] = aA;
+    return 0.f;
+  }
+};
+
+// K15: A_hat p = sq . J^T J (sq . p) at the own rows of S extended slabs
+// (Slabs in warp_energy.cuh), on the row-marching core: blockIdx.z is the
+// slab, blockIdx.y a chunk of `rows` own rows, the chunk's face rows read
+// from the slab's own halo (he >= 1).  K4's apply without the beta step,
+// scs or the dot: the slab loop adds scs . p and takes the dots outside
+// (opt_tpu/parallel/stream_shard.py:313-329).
+__global__ void __launch_bounds__(kStripThreads)
 warp_slab_apply_kernel(const float* __restrict__ x,
                        const float* __restrict__ ur,
                        const float* __restrict__ cons,
@@ -212,33 +247,22 @@ warp_slab_apply_kernel(const float* __restrict__ x,
                        const float* __restrict__ params,
                        const float* __restrict__ sq,
                        const float* __restrict__ p, float* __restrict__ ap,
-                       int W, Slabs sl) {
+                       int W, Slabs sl, int rows, bool pairs) {
   const int sb = blockIdx.z;
+  const int w0 = (blockIdx.x * kStripWarps + threadIdx.y) * kOwn;
+  if (w0 >= W) return;
   const Grid g = sl.grid(sb, W);
-  const int j = blockIdx.x * kBX + threadIdx.x;
-  const int ic = blockIdx.y * kBY + threadIdx.y;
-  if (ic >= sl.n || j >= W) return;
   const int HW = g.H * W;
+  const int ch = blockIdx.y;
+  const int c0 = sl.he + ch * rows;
+  const int c1 = sl.he + min((ch + 1) * rows, sl.n);
   // this slab's arrays
-  const float* xs = x + (size_t)sb * 3 * HW;
-  const float* urs = ur + (size_t)sb * 2 * HW;
-  const float* cs = cons + (size_t)sb * 2 * HW;
-  const float* ms = mask + (size_t)sb * HW;
-  const float* sqs = sq + (size_t)sb * 3 * HW;
-  const float* ps = p + (size_t)sb * 3 * HW;
-  const int i = sl.he + ic;
-  const int k = i * W + j;
-  float a[3] = {0.f, 0.f, 0.f};
-  if (ms[k] == 0.f)
-    hat_apply_at(g, i, j, xs, urs, cs, ms, params, sqs, nullptr,
-                 HatRead{ps, nullptr, sqs, 0.f, HW}, ps[2 * k],
-                 ps[2 * k + 1], ps[2 * HW + k], a);
-  // the own pixel in the local layout
-  const int ko = (sb * sl.n + ic) * W + j;
-  const int No = sl.S * sl.n * W;
-  ap[2 * ko] = a[0];
-  ap[2 * ko + 1] = a[1];
-  ap[2 * No + ko] = a[2];
+  const size_t s3 = (size_t)sb * 3 * HW, s2 = (size_t)sb * 2 * HW;
+  const SlabApplyIo io{sq + s3, p + s3, ap, W, HW, sb * sl.n - sl.he,
+                       sl.S * sl.n * W};
+  warp_tile_march(g, c0, c1, w0 - 1 + (int)threadIdx.x, x + s3 + 2 * HW,
+                  ur + s2, cons + s2, mask + (size_t)sb * HW, params[0],
+                  params[1], pairs, io);
 }
 
 }  // namespace
@@ -284,8 +308,14 @@ extern "C" int opt_warp_slab_apply(const float* x, const float* ur,
                                    const float* p, float* ap, int S, int n,
                                    int he, int W, int row0, int Hg,
                                    void* stream) {
-  warp_slab_apply_kernel<<<warp_grid(n, W, S), dim3(kBX, kBY), 0,
+  const int capacity = warp_tile_capacity(warp_slab_apply_kernel);
+  if (capacity < 0) return -capacity;
+  const int rows = warp_tile_rows(S, n, W, capacity);
+  const long slab = 3L * (n + 2 * he) * W;
+  warp_slab_apply_kernel<<<warp_tile_grid(S, n, W, rows),
+                           dim3(kStrip, kStripWarps), 0,
                            (cudaStream_t)stream>>>(
-      x, ur, cons, mask, params, sq, p, ap, W, Slabs{S, n, he, row0, Hg});
+      x, ur, cons, mask, params, sq, p, ap, W, Slabs{S, n, he, row0, Hg},
+      rows, tile_pairs(slab, S, sq, p, ur, cons, ap));
   return (int)cudaGetLastError();
 }

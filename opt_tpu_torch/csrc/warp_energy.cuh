@@ -1,5 +1,6 @@
-// The image_warping energy's J^T J apply at one pixel, shared by K1
-// (warp_kernels.cu) and by K4 and K5 (stream_kernels.cu).
+// The image_warping energy's J^T J apply at one pixel, the gather form
+// shared by K4 and K5 (stream_kernels.cu) and K13 (resident_kernels.cu);
+// K1 and K15 run on warp_tile.cuh's row-marching core instead.
 //
 // The energy, for pixel k (row i, column j) and stencil offset s in
 // {(+1,0), (-1,0), (0,+1), (0,-1)} (x = column first), n = k + s:
@@ -95,19 +96,6 @@ __device__ __forceinline__ void drot(float s, float c, float d0, float d1,
   *g0 = -s * d0 - c * d1;
   *g1 = c * d0 - s * d1;
 }
-
-// The operand that J^T J is applied to, read at a pixel: the flat vector
-// itself (K1), or one formed on the fly (K4, K5).
-struct FlatRead {
-  const float* v;
-  int HW;
-  __device__ void operator()(int idx, float* v0, float* v1,
-                             float* vA) const {
-    *v0 = v[2 * idx];
-    *v1 = v[2 * idx + 1];
-    *vA = v[2 * HW + idx];
-  }
-};
 
 // (J^T J v)(k) for a pixel k whose Mask is 0, given v(k) = (vk0, vk1, vkA)
 // and a reader for v at the neighbours.

@@ -11,7 +11,8 @@
 // two kernels hold the derivatives of one energy,
 // opt_tpu_torch/energies.py:image_warping, in closed form (the reference
 // did the same in its hand-written WarpingSolver.cu).  warp_energy.cuh
-// states the energy and holds the J^T J apply shared with K4 and K5.
+// states the energy; K1's J^T J apply is warp_tile.cuh's core, which K15
+// shares.
 //
 // J is UNMASKED (rows whose centre pixel is excluded stay in J); only the
 // cost and the unknown side are masked: K1 zeroes Ap at excluded pixels,
@@ -28,23 +29,70 @@
 // Angle (4 B), UrShape (8 B), Constraints (8 B) and Mask (4 B) per pixel
 // and writes Ap (12 B): 48 B per pixel (60 B with ctc), 12.6 MB at 512^2,
 // which sits in the 50 MB L2 across PCG iterations.  K3 reads x and the
-// constants (36 B, 48 B with delta) and writes J^T F and diag (24 B).  The
-// neighbour reads are served by L1/L2 (a 32x8 block touches a 34x10
-// footprint), so the design is one thread per pixel in 32x8 blocks with x
-// on the contiguous W axis and no shared-memory staging; the ~40 flops per
-// pixel leave the kernels memory-bound.  Sums across blocks are per-block
-// partials from a fixed shared-memory tree (no float atomics: repeated
-// runs match bit for bit).  sincosf is the full-precision version: the
-// build uses no --use_fast_math, since __sinf and __cosf would cost
-// Rotate2D accuracy over 3,200 applies.
+// constants (36 B, 48 B with delta) and writes J^T F and diag (24 B).
+//
+// K1 runs on the row-marching core of warp_tile.cuh (a warp of 32 lanes
+// marches a strip of 30 own columns down a chunk of rows, each pixel's
+// data read once, its sincosf taken once, each residual formed once; the
+// file says what bounded the gather form).  K3 keeps the gather form, one
+// thread per pixel in 32x8 blocks with x on the contiguous W axis, the
+// neighbour reads served by L1/L2 (a 32x8 block touches a 34x10
+// footprint).  Sums across
+// blocks are per-block partials from a fixed tree (no float atomics:
+// repeated runs match bit for bit).  sincosf is the full-precision
+// version: the build uses no --use_fast_math, since __sinf and __cosf
+// would cost Rotate2D accuracy over 3,200 applies.
 
 #include "warp_energy.cuh"
+#include "warp_tile.cuh"
 
 namespace {
 
 enum LinearizeMode { kFull = 0, kCostOnly = 1, kModelCost = 2 };
 
-__global__ void __launch_bounds__(kThreads)
+// K1's operand and output: v = p; Ap = mask(J^T J p + ctc p) at own
+// pixel k, and <p, Ap>.  Its raw data: p and (at the pixels the lane
+// writes, LM) ctc.
+struct ApplyIo {
+  static constexpr int kRaw = 6;
+  const float* __restrict__ p;
+  const float* __restrict__ ctc;
+  float* __restrict__ ap;
+  int W, HW;
+  __device__ void fetch(int k, bool own, bool pairs, float* r) const {
+    ld_pair(p, k, pairs, &r[0], &r[1]);
+    r[2] = __ldg(p + 2 * HW + k);
+    if (own && ctc != nullptr) {
+      ld_pair(ctc, k, pairs, &r[3], &r[4]);
+      r[5] = __ldg(ctc + 2 * HW + k);
+    }
+  }
+  __device__ void operand(const float* r, Pix& px) const {
+    px.v0 = r[0], px.v1 = r[1], px.vA = r[2];
+    px.x0 = r[3], px.x1 = r[4], px.xA = r[5];
+  }
+  __device__ float store(int i, int j, const Pix& px, bool pairs) const {
+    const int k = i * W + j;
+    float a0 = 0.f, a1 = 0.f, aA = 0.f, dot = 0.f;
+    if (px.keep) {
+      a0 = px.a0, a1 = px.a1, aA = px.aA;
+      if (ctc != nullptr) {
+        a0 += px.x0 * px.v0;
+        a1 += px.x1 * px.v1;
+        aA += px.xA * px.vA;
+      }
+      dot = px.v0 * a0 + px.v1 * a1 + px.vA * aA;
+    }
+    st_pair(ap, k, pairs, a0, a1);
+    ap[2 * HW + k] = aA;
+    return dot;
+  }
+};
+
+// K1 on the row-marching core: blockIdx.y is a chunk of `rows` own rows
+// (warp_tile_rows), each warp a strip of kOwn own columns; one dot
+// partial a block
+__global__ void __launch_bounds__(kStripThreads)
 warp_jtj_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ p,
                       const float* __restrict__ ur,
@@ -53,33 +101,19 @@ warp_jtj_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ params,
                       const float* __restrict__ ctc,
                       float* __restrict__ ap, float* __restrict__ partials,
-                      int H, int W) {
-  __shared__ float sh[kThreads];
-  const Grid g{H, W};
-  const int j = blockIdx.x * kBX + threadIdx.x;
-  const int i = blockIdx.y * kBY + threadIdx.y;
+                      int H, int W, int rows, bool pairs) {
+  __shared__ float sh[kStripWarps];
+  const int w0 = (blockIdx.x * kStripWarps + threadIdx.y) * kOwn;
+  const int c0 = blockIdx.y * rows, c1 = min(c0 + rows, H);
   const int HW = H * W;
   float dot = 0.f;
-  if (g.inside(i, j)) {
-    const int k = i * W + j;
-    float a0 = 0.f, a1 = 0.f, aA = 0.f;
-    if (mask[k] == 0.f) {
-      const float pk0 = p[2 * k], pk1 = p[2 * k + 1], pkA = p[2 * HW + k];
-      jtj_at(g, i, j, x + 2 * HW, ur, cons, mask, params[0], params[1], pk0,
-             pk1, pkA, FlatRead{p, HW}, &a0, &a1, &aA);
-      if (ctc != nullptr) {
-        a0 += ctc[2 * k] * pk0;
-        a1 += ctc[2 * k + 1] * pk1;
-        aA += ctc[2 * HW + k] * pkA;
-      }
-      dot = pk0 * a0 + pk1 * a1 + pkA * aA;
-    }
-    ap[2 * k] = a0;
-    ap[2 * k + 1] = a1;
-    ap[2 * HW + k] = aA;
-  }
-  const float s = block_sum(dot, sh);
-  if (thread_rank() == 0) partials[block_rank()] = s;
+  if (w0 < W)
+    dot = warp_tile_march(Grid{H, W}, c0, c1, w0 - 1 + (int)threadIdx.x,
+                          x + 2 * HW, ur, cons, mask, params[0], params[1],
+                          pairs, ApplyIo{p, ctc, ap, W, HW});
+  const float s = strip_block_sum(dot, sh);
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
 // K3 over S extended slabs (Slabs in warp_energy.cuh; a whole grid is one
@@ -213,10 +247,26 @@ warp_linearize_kernel(const float* __restrict__ x,
   if (thread_rank() == 0) cost_partials[block_rank()] = s;
 }
 
+// K1's chunk of own rows on the current device, or minus the CUDA error
+// of the occupancy query
+int jtj_apply_rows(int H, int W) {
+  const int capacity = warp_tile_capacity(warp_jtj_apply_kernel);
+  return capacity < 0 ? capacity : warp_tile_rows(1, H, W, capacity);
+}
+
 }  // namespace
 
 extern "C" int opt_warp_blocks(int H, int W) {
   const dim3 gr = warp_grid(H, W);
+  return (int)(gr.x * gr.y);
+}
+
+// K1's dot partials: one a block of its march (minus the CUDA error where
+// the occupancy query fails)
+extern "C" int opt_warp_apply_blocks(int H, int W) {
+  const int rows = jtj_apply_rows(H, W);
+  if (rows < 0) return rows;
+  const dim3 gr = warp_tile_grid(1, H, W, rows);
   return (int)(gr.x * gr.y);
 }
 
@@ -226,9 +276,13 @@ extern "C" int opt_warp_jtj_apply(const float* x, const float* p,
                                   const float* ctc, float* ap,
                                   float* partials, int H, int W,
                                   void* stream) {
-  warp_jtj_apply_kernel<<<warp_grid(H, W), dim3(kBX, kBY), 0,
+  const int rows = jtj_apply_rows(H, W);
+  if (rows < 0) return -rows;
+  warp_jtj_apply_kernel<<<warp_tile_grid(1, H, W, rows),
+                          dim3(kStrip, kStripWarps), 0,
                           (cudaStream_t)stream>>>(
-      x, p, ur, cons, mask, params, ctc, ap, partials, H, W);
+      x, p, ur, cons, mask, params, ctc, ap, partials, H, W, rows,
+      tile_pairs(0, 1, p, ctc, ur, cons, ap));
   return (int)cudaGetLastError();
 }
 

@@ -47,6 +47,7 @@ _I = ctypes.c_int
 # takes a Python int (a data_ptr()) as it is
 SIGNATURES = {
     "opt_warp_blocks": [_I, _I],
+    "opt_warp_apply_blocks": [_I, _I],
     "opt_warp_jtj_apply": [_P] * 9 + [_I, _I, _P],
     "opt_warp_linearize": [_P] * 9 + [_I, _I, _I, _P],
     "opt_warp_hat_apply": [_P] * 13 + [_I, _I, _P],
@@ -165,8 +166,9 @@ def check(rc, name):
 
 
 def coop_blocks(n, name):
-    """The grid of a cooperative launch, from its *_blocks entry's value
-    n: a block count, or minus the CUDA error of the occupancy query."""
+    """The grid of a launch sized by the occupancy query (a cooperative
+    launch, or K1's march), from its *_blocks entry's value n: a block
+    count, or minus the CUDA error of the query."""
     if n <= 0:
         check(-n, name)
     return n

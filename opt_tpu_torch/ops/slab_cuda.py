@@ -31,16 +31,17 @@ The energy's InBounds tests global rows, so a zero-filled halo row past
 the global edge is no neighbour (csrc/warp_energy.cuh Grid,
 csrc/vol_energy.cuh Vol).
 
-Bound on the card: device memory.  K15 reads the extended x, sq and p
-(36 B a pixel), UrShape, Constraints and Mask (20 B) and writes A_hat p
-(12 B); at 2048^2 on 4 slabs of 512 + 2 x 2 rows, 285 MB a launch.  K16
+Bound on the card: device memory.  K15 reads x's Angle (4 B a pixel), sq
+and p (24 B), UrShape (8 B) and Mask (4 B) on its own rows and one halo
+row a side, Constraints (8 B) at its own pixels, and writes A_hat p
+(12 B): at 2048^2 on 4 slabs of 512 + 2 x 2 rows, 252.3 MB a launch.  K16
 reads the angles, UrShape, sq and p (72 B a voxel) on its own planes and
 one halo plane a side, Constraints' channel 0 (4 B) on its own planes,
 and writes 24 B: at 128^3 on 4 slabs of 32 + 2 x 2 planes, 219 MB a
-launch.  K15 is K4's gather-form apply, one thread per own pixel (no
-thread writes another's output); K16 runs on K6's shared-memory tile core
-(csrc/vol_tile.cuh), a block marching a tile of columns through a chunk
-of own planes.  No reductions inside: the slab loop takes its dots
+launch.  K15 runs on K1's row-marching core (csrc/warp_tile.cuh), a
+warp marching a strip of 32 columns down a chunk of own rows; K16 on K6's
+shared-memory tile core (csrc/vol_tile.cuh), a block marching a tile of
+columns through a chunk of own planes.  No reductions inside: the slab loop takes its dots
 outside, as the TPU kernel's loop does.  K3 and K8 keep their per-block
 cost partials, in slab order, summed per slab by the wrappers.
 

@@ -14,7 +14,8 @@ in solver/core.py; this module supplies the operator behind its seam:
                      cost alone, or LM's model cost 0.5 sum mask(F + J d)^2
                      (csrc/warp_kernels.cu)
   K1 warp_jtj_apply  mask(J^T J p + ctc p) and <p, Ap>; ctc is LM's CtC
-                     diagonal (csrc/warp_kernels.cu)
+                     diagonal (csrc/warp_kernels.cu, on the row-marching
+                     core of csrc/warp_tile.cuh)
   K2 pcg_update      the PCG Step2 (ops/pcg_update.py, csrc/pcg_update.cu)
 
 Beside each kernel wrapper sits a closed-form plain torch version of the
@@ -218,8 +219,9 @@ def warp_jtj_apply(x, p, ur, cons, mask, params, ctc=None):
         x=x, p=p, ur=ur, cons=cons, mask=mask, params=params, ctc=ctc))
     lib = build.library()
     ap = torch.empty_like(p)
-    parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=p.dtype,
-                        device=p.device)
+    parts = torch.empty(build.coop_blocks(lib.opt_warp_apply_blocks(H, W),
+                                          "warp_jtj_apply"),
+                        dtype=p.dtype, device=p.device)
     rc = lib.opt_warp_jtj_apply(
         build.ptr(x), build.ptr(p), build.ptr(ur), build.ptr(cons),
         build.ptr(mask), build.ptr(params), build.ptr(ctc), build.ptr(ap),

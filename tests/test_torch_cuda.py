@@ -67,6 +67,73 @@ def test_jtj_apply_kernel_matches_plain(dev, W, H):
                                                params))
 
 
+# K1 and K15 on the row-marching core (csrc/warp_tile.cuh): ragged strips
+# of 32 columns and ragged chunks of rows, one pixel, one column past 16
+# strips, and the paths' grids
+MARCH_SIZES = [(33, 9), (1, 1), (513, 7), (512, 512), (2048, 2048)]
+
+
+def _march_operands(W, H, dev, seed=7):
+    """kernel_operands with excluded pixels beside a strip's edge columns
+    and on a chunk's first row, where the grid has them."""
+    x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
+                                                              dev, seed)
+    for i, j in ((1, 31), (H - 1, 32), (4, 0), (4, 63), (5, 64)):
+        if i < H and j < W:
+            mask[i, j] = 1.0
+    return x, ur, cons, mask, params, t
+
+
+def _k1_partials(x, p, ur, cons, mask, params, ctc):
+    """K1 through its C entry, into as many partials as
+    opt_warp_apply_blocks gives, NaN before the launch: (Ap, partials)."""
+    from opt_tpu_torch.ops import build
+
+    lib = build.library()
+    H, W = mask.shape[:2]
+    ap = torch.empty_like(p)
+    parts = torch.full((lib.opt_warp_apply_blocks(H, W),), float("nan"),
+                       device=p.device)
+    ptr = build.ptr
+    build.check(lib.opt_warp_jtj_apply(
+        ptr(x), ptr(p), ptr(ur), ptr(cons), ptr(mask), ptr(params), ptr(ctc),
+        ptr(ap), ptr(parts), H, W, build.stream()), "warp_jtj_apply")
+    return ap, parts
+
+
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("W,H", MARCH_SIZES)
+def test_jtj_apply_march_matches_plain_and_repeats(dev, W, H, lm):
+    x, ur, cons, mask, params, t = _march_operands(W, H, dev)
+    args = (x, t["p"], ur, cons, mask, params, t["ctc"] if lm else None)
+    n = warp_cuda.warp_jtj_apply.launches
+    got = warp_cuda.warp_jtj_apply(*args)
+    assert warp_cuda.warp_jtj_apply.launches == n + 1
+    _close(got, warp_cuda.warp_jtj_apply_plain(*args))
+    # every block writes its one partial; two calls match bit for bit
+    a, b = _k1_partials(*args), _k1_partials(*args)
+    assert not torch.isnan(a[1]).any()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], got[0])
+    assert float(torch.sum(a[1])) == float(got[1])
+
+
+def test_jtj_apply_march_on_unaligned_operands(dev):
+    """p, ur and ctc at an odd float offset in their storage: the core
+    moves them as single floats, with the same result."""
+    W, H = 33, 9
+    x, ur, cons, mask, params, t = _march_operands(W, H, dev)
+    shifted = lambda a: torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].view(
+        a.shape)
+    args = (x, shifted(t["p"]), shifted(ur), cons, mask, params,
+            shifted(t["ctc"]))
+    assert args[1].data_ptr() % 8 == 4
+    got = warp_cuda.warp_jtj_apply(*args)
+    _close(got, warp_cuda.warp_jtj_apply_plain(*args))
+    assert torch.equal(got[0], warp_cuda.warp_jtj_apply(
+        x, t["p"], ur, cons, mask, params, t["ctc"])[0])
+
+
 @pytest.mark.parametrize("cost_only", [False, True])
 @pytest.mark.parametrize("W,H", SIZES)
 def test_linearize_kernel_matches_plain(dev, W, H, cost_only):
@@ -962,6 +1029,124 @@ def test_warp_slab_kernels_match_plain(dev):
             _close(sc.warp_slab_linearize(xs, urs, cs, ms, params, gs, **kw),
                    sc.warp_slab_linearize_plain(xs, urs, cs, ms, params, gs,
                                                 **kw))
+
+
+@pytest.mark.parametrize("case", ["3x1", "3x17", "2048^2"])
+def test_warp_slab_apply_march_matches_plain_and_repeats(dev, case):
+    """K15 on the row-marching core: 3 slabs of 1 and of 17 rows at a
+    ragged width (the first slab's halo before the global edge, the last's
+    past it), and the sharded paths' 4 slabs of 512 rows at 2048^2; the
+    batch and each slab alone, each twice, bit for bit."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    if case == "2048^2":
+        W = H = chip_smoke.BIG
+        S = chip_smoke.SHARD_SLABS
+    else:
+        S, n = map(int, case.split("x"))
+        W, H = 37, S * n
+    x, ur, cons, mask, params, t, g = chip_smoke.slab_operands(
+        torch, W, H, S, dev, seed=11)
+    assert g[:2] == (H // S, 2)
+    for s in (None,) + tuple(range(S)):
+        ops, gs = (((x, ur, cons, mask, t["sq"], t["p"]), g) if s is None
+                   else _alone((x, ur, cons, mask, t["sq"], t["p"]), s, g))
+        xs, urs, cs, ms, sq, p = ops
+        got = sc.warp_slab_apply(xs, urs, cs, ms, params, sq, p, gs)
+        _close([got], [sc.warp_slab_apply_plain(xs, urs, cs, ms, params, sq,
+                                                p, gs)])
+        assert torch.equal(got, sc.warp_slab_apply(xs, urs, cs, ms, params,
+                                                   sq, p, gs))
+
+
+def test_warp_march_kernels_refuse_misshaped_calls(dev):
+    """A misshaped operand or slab geometry raises before any launch."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    x, ur, cons, mask, params, t = _march_operands(33, 9, dev)
+    n = warp_cuda.warp_jtj_apply.launches
+    with pytest.raises(ValueError, match="warp_jtj_apply"):
+        warp_cuda.warp_jtj_apply(x, t["p"][:-3], ur, cons, mask, params)
+    with pytest.raises(ValueError, match="warp_jtj_apply"):
+        warp_cuda.warp_jtj_apply(x, t["p"], ur, cons, mask, params,
+                                 t["ctc"][:-1])
+    assert warp_cuda.warp_jtj_apply.launches == n
+    x, ur, cons, mask, params, t, g = _warp_slabs(dev)
+    n = sc.warp_slab_apply.launches
+    with pytest.raises(ValueError, match="warp_slab_apply"):
+        sc.warp_slab_apply(x, ur, cons, mask, params, t["sq"], t["p"],
+                           (g[0], 1, g[2], g[3]))
+    with pytest.raises(ValueError, match="warp_slab_apply"):
+        sc.warp_slab_apply(x, ur, cons, mask, params, t["sq"][:, :-1],
+                           t["p"], g)
+    assert sc.warp_slab_apply.launches == n
+
+
+class _ZeroWidthLibrary:
+    """The kernel library with K1's and K15's C entries handed a width of
+    0: an empty grid, which CUDA refuses to launch."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self.lib, name)
+        if name == "opt_warp_jtj_apply":
+            return lambda *a: fn(*a[:10], 0, a[11])
+        if name == "opt_warp_slab_apply":
+            return lambda *a: fn(*a[:11], 0, *a[12:])
+        return fn
+
+
+def test_warp_march_launch_failure_raises_through_solve(dev, monkeypatch):
+    """K1 (the cuda engine) and K15 (a solve over a mesh of slabs) refused
+    their launch raise out of Plan.solve with CUDA's error: no engine
+    catches it and carries on, and no launch is counted."""
+    from opt_tpu_torch.ops import build, slab_cuda as sc
+    from opt_tpu_torch.parallel.mesh import make_mesh
+
+    lib = build.library()
+    monkeypatch.setattr(build, "library", lambda: _ZeroWidthLibrary(lib))
+    plan = _mesh_plan("image_warping", "gaussNewtonGPU", (64, 48), 1, 2)
+    inputs = chip_smoke.warp_inputs(64, 48, seed=6)
+    n = warp_cuda.warp_jtj_apply.launches
+    with pytest.raises(RuntimeError, match="warp_jtj_apply: CUDA error"):
+        plan.solve(inputs, engine="cuda")
+    assert plan.engine == "cuda"
+    assert warp_cuda.warp_jtj_apply.launches == n
+    n = sc.warp_slab_apply.launches
+    with pytest.raises(RuntimeError, match="warp_slab_apply: CUDA error"):
+        plan.solve(inputs, engine="stream", mesh=make_mesh(4, device="cuda"))
+    assert sc.warp_slab_apply.launches == n
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("W,H", [(37, 23), (2048, 2048)])
+def test_gather_form_kernels_repeat_bit_for_bit(dev, W, H):
+    """K4 (GN and LM), K5 (GN and LM) and K13 keep warp_energy.cuh's
+    gather form: two calls on the same operands match bit for bit."""
+    x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
+                                                              dev, seed=12)
+    alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    for scs in (None, t["scs"]):
+        args = (x, ur, cons, mask, params, t["sq"], scs, t["r"], t["p"],
+                beta)
+        a, b = stream_cuda.warp_hat_apply(*args), stream_cuda.warp_hat_apply(
+            *args)
+        assert all(torch.equal(u, v) for u, v in zip(a, b))
+        b_hat = None if scs is None else t["b"]
+        sweeps = [chip_smoke.sweep_case(
+            torch, stream_cuda.warp_pipelined_sweep,
+            (x, ur, cons, mask, params, t["sq"], scs), t, alpha, beta,
+            b_hat)() for _ in range(2)]
+        for u, v in zip(*sweeps):
+            assert (u is None and v is None) or torch.equal(u, v)
+    if W * H <= 37 * 23:
+        hat, sq, b_hat = chip_smoke.resident_operands(torch, "warp", W, H,
+                                                      dev)
+        assert torch.equal(stream_cuda.resident_pcg(hat, sq, b_hat, 20),
+                           stream_cuda.resident_pcg(hat, sq, b_hat, 20))
 
 
 def test_vol_slab_kernels_match_plain(dev):
