@@ -1,5 +1,6 @@
-// The poisson_image_editing energy's J^T J apply at one pixel, shared by
-// K12 (poisson_kernels.cu) and K13's poisson mode (resident_kernels.cu).
+// The poisson_image_editing energy's J^T J apply, and the resident PCG
+// loop over it that K12 (poisson_kernels.cu) and K13's poisson mode
+// (resident_kernels.cu) run on resident_pcg.cuh.
 //
 // The energy (opt_tpu_torch/energies.py poisson_image_editing), per pixel
 // q, channel c and direction d in {(+1,0), (-1,0), (0,+1), (0,-1)}:
@@ -20,52 +21,155 @@
 
 namespace {
 
-// (J^T J v)(i, j) of one channel; v(i', j') reads v at a pixel inside the
-// domain (the caller's scaling and layout)
-template <class Read>
-__device__ __forceinline__ float poisson_jtj_at(int i, int j, int H, int W,
-                                                const Read& v) {
-  constexpr int dx[4] = {1, -1, 0, 0};
-  constexpr int dy[4] = {0, 0, 1, -1};
-  const float vq = v(i, j);
+// (J^T J v)(q) of one channel from v(q) and the neighbours' v in the
+// energy's direction order (+x, -x, +y, -y), 0 for a neighbour outside the
+// domain: each direction adds its own residual's share, then the share of
+// the residual centred at the opposite neighbour, which reads q
+// (v(q-d) - v(q) subtracted is vq - v(q-d) added, exactly)
+__device__ __forceinline__ float poisson_jtj(float vq, const float (&vn)[4],
+                                             const bool (&in)[4]) {
   float a = 0.f;
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    const int ni = i + dy[t], nj = j + dx[t];
-    if (ni >= 0 && ni < H && nj >= 0 && nj < W) a += vq - v(ni, nj);
-    const int mi = i - dy[t], mj = j - dx[t];
-    if (mi >= 0 && mi < H && mj >= 0 && mj < W) a -= v(mi, mj) - vq;
+    if (in[t]) a += vq - vn[t];
+    if (in[t ^ 1]) a += vq - vn[t ^ 1];
   }
   return a;
 }
 
-// The energy for resident_pcg.cuh: C channels of an H x W grid, component
-// (pixel k, channel c) of the vectors at k * ps + c * cs and of sq at
-// k * sps + c * scs.  K12 reads (C, H, W) planes and a (H, W) keep mask
-// (ps 1, cs H W, sps 1, scs 0); K13 the solver's flat (H, W, C) vector
-// and its sq (ps = sps = C, cs = scs = 1).
-struct PoissonHat {
+// The loop for resident_pcg.cuh over C planes (C, H, W) of an H x W grid,
+// a thread a pixel (every channel), the warp's lanes on consecutive pixels
+// of the flat grid.  sq has a plane a channel (sq_cs = H W: K13's hat
+// space) or one plane for all (sq_cs = 0: K12's keep mask).  kPerComp:
+// alpha and beta per channel (K12); kMaskRhs: r0 = sq . b (K12's
+// keep . b), else r0 = b (K13's b_hat).  The apply forms p at the pixel
+// and its two neighbours along H from r and p_prev, and takes the two
+// along W from the lanes beside it by shuffles (a lane at a row's end or
+// the warp's loads its own); it reads every channel's centre first, so
+// that their loads are in flight together.
+template <bool kPerComp, bool kMaskRhs>
+struct PoissonLoop {
   static constexpr int kComp = 4;
+  static constexpr int kThreads = 256;
+  static constexpr int kMinBlocks = 4;  // 64 registers at most
+  static constexpr int kGroups = kPerComp ? kComp : 1;
   int H, W, C;
-  int ps, cs, sps, scs;
-  __device__ int comps() const { return C; }
-  __device__ int idx(int k, int c) const { return k * ps + c * cs; }
-  __device__ int sq_idx(int k, int c) const { return k * sps + c * scs; }
-  // a[c] = sq (J^T J (sq p)) at pixel k; p at the neighbours through L2
-  __device__ void hat(int k, const float* sq, const float* p,
-                      float* a) const {
-    const int i = k / W, j = k - i * W;
+  int sq_cs;
+  const float* __restrict__ sq;
+  const float* __restrict__ b;
+  float* delta;
+  float* r;
+  float* p[2];
+  float* ap;
+  float* parts;
+
+  __device__ int groups() const { return kPerComp ? C : 1; }
+  __device__ static int grp(int c) { return kPerComp ? c : 0; }
+
+  // f(k, in) over this warp's pixels k = base + lane, base a multiple of
+  // 32 striding over the grid, in = k inside it (the whole warp runs each
+  // step, so the apply's shuffles see every lane)
+  template <class F>
+  __device__ __forceinline__ void sweep(F f) const {
+    const int HW = H * W;
+    const int warp = threadIdx.y, lane = threadIdx.x;
+    const int stride = gridDim.x * kThreads;
+    for (int base = blockIdx.x * kThreads + warp * 32; base < HW;
+         base += stride)
+      f(base + lane, base + lane < HW);
+  }
+
+  // f(i, c, k) for each own element i, channel c of pixel k
+  template <class F>
+  __device__ __forceinline__ void own(F f) const {
+    const int HW = H * W;
+    sweep([&](int k, bool in) {
+      if (!in) return;
 #pragma unroll
-    for (int c = 0; c < kComp; ++c) {
-      a[c] = 0.f;
-      if (c < C) {
-        const auto v = [&](int ii, int jj) {
-          const int q = ii * W + jj;
-          return sq[sq_idx(q, c)] * __ldcg(p + idx(q, c));
-        };
-        a[c] = sq[sq_idx(k, c)] * poisson_jtj_at(i, j, H, W, v);
+      for (int c = 0; c < kComp; ++c)
+        if (c < C) f(c * HW + k, c, k);
+    });
+  }
+
+  template <int KG>
+  __device__ __forceinline__ void start(float (&acc)[KG]) const {
+    own([&](int i, int c, int k) {
+      const float v = kMaskRhs ? sq[c * sq_cs + k] * b[i] : b[i];
+      r[i] = v;
+      p[0][i] = 0.f;
+      delta[i] = 0.f;
+      acc[grp(c)] += v * v;
+    });
+  }
+
+  template <int KG>
+  __device__ __forceinline__ void apply(const float* pp, float* pn,
+                                        const float (&beta)[KG],
+                                        const float (&alpha)[KG],
+                                        float (&acc)[KG]) const {
+    const int HW = H * W;
+    const int lane = threadIdx.x;
+    sweep([&](int k, bool in) {
+      const int i = k / W, j = k - i * W;
+      float pk[kComp], vk[kComp];
+#pragma unroll
+      for (int c = 0; c < kComp; ++c) {
+        pk[c] = vk[c] = 0.f;
+        if (c < C && in) {
+          const int o = c * HW + k;
+          const float ppk = __ldcg(pp + o);
+          pk[c] = __fmaf_rn(beta[grp(c)], ppk, __ldcg(r + o));
+          vk[c] = sq[c * sq_cs + k] * pk[c];
+          delta[o] = delta[o] + alpha[grp(c)] * ppk;  // the last step
+        }
       }
-    }
+#pragma unroll
+      for (int c = 0; c < kComp; ++c) {
+        if (c < C) {
+          const float bt = beta[grp(c)];
+          const float* sc = sq + c * sq_cs;
+          const int o = c * HW;
+          // sq . p at pixel q, p formed from r and p_prev (through L2)
+          const auto v = [&](int q) {
+            return sc[q] * __fmaf_rn(bt, __ldcg(pp + o + q),
+                                     __ldcg(r + o + q));
+          };
+          // the W neighbours from the lanes beside (same row: j -/+ 1 is
+          // the lane before's or after's pixel), else a load
+          const float left = __shfl_up_sync(0xffffffffu, vk[c], 1);
+          const float right = __shfl_down_sync(0xffffffffu, vk[c], 1);
+          if (!in) continue;
+          const bool ins[4] = {j + 1 < W, j > 0, i + 1 < H, i > 0};
+          float vn[4] = {0.f, 0.f, 0.f, 0.f};
+          if (ins[0]) vn[0] = lane < 31 ? right : v(k + 1);
+          if (ins[1]) vn[1] = lane > 0 ? left : v(k - 1);
+          if (ins[2]) vn[2] = v(k + W);
+          if (ins[3]) vn[3] = v(k - W);
+          const float a = sc[k] * poisson_jtj(vk[c], vn, ins);
+          pn[o + k] = pk[c];
+          ap[o + k] = a;
+          acc[grp(c)] += pk[c] * a;
+        }
+      }
+    });
+  }
+
+  template <int KG>
+  __device__ __forceinline__ void update(const float (&alpha)[KG],
+                                         float (&acc)[KG]) const {
+    own([&](int i, int c, int) {
+      const float rn = r[i] - alpha[grp(c)] * ap[i];
+      r[i] = rn;
+      acc[grp(c)] += rn * rn;
+    });
+  }
+
+  template <int KG>
+  __device__ __forceinline__ void finish(const float* pl,
+                                         const float (&alpha)[KG]) const {
+    own([&](int i, int c, int) {
+      delta[i] = delta[i] + alpha[grp(c)] * pl[i];
+    });
   }
 };
 

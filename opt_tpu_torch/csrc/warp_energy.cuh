@@ -1,6 +1,6 @@
 // The image_warping energy's J^T J apply at one pixel, the gather form
-// shared by K4 and K5 (stream_kernels.cu) and K13 (resident_kernels.cu);
-// K1 and K15 run on warp_tile.cuh's row-marching core instead.
+// shared by K4 and K5 (stream_kernels.cu); K1, K13 and K15 run on
+// warp_tile.cuh's row-marching core instead.
 //
 // The energy, for pixel k (row i, column j) and stencil offset s in
 // {(+1,0), (-1,0), (0,+1), (0,-1)} (x = column first), n = k + s:

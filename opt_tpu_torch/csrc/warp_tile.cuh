@@ -1,10 +1,11 @@
-// The row-marching 2-D apply core of K1 warp_jtj_apply (warp_kernels.cu)
-// and K15 warp_slab_apply (stream_kernels.cu): J^T J v for image_warping
+// The row-marching 2-D apply core of K1 warp_jtj_apply (warp_kernels.cu),
+// K15 warp_slab_apply (stream_kernels.cu) and K13 resident_pcg's apply
+// (resident_kernels.cu): J^T J v for image_warping
 // (warp_energy.cuh states the energy), each pixel's data read once, its
 // sincosf taken once, each residual formed once.
 //
-// What bounded the gather form on this card.  The gather form, which K4,
-// K5 and K13 keep (warp_energy.cuh jtj_at, one thread a pixel), takes
+// What bounded the gather form on this card.  The gather form, which K4
+// and K5 keep (warp_energy.cuh jtj_at, one thread a pixel), takes
 // five sincosf a pixel (its own and one for each neighbour whose residual
 // reads it), forms each of the eight residuals that touch a pixel, so
 // every residual twice, and reads UrShape, Mask and the operand again at
@@ -98,7 +99,8 @@ struct Raw {
 // A pixel as the march holds it
 struct Pix {
   float v0, v1, vA;  // the operand J^T J is applied to
-  float x0, x1, xA;  // the Io's values for the output (K1 ctc, K15 sq)
+  float x0, x1, xA;  // the Io's values for the output (K1 ctc, K15 sq,
+  float y0, y1, yA;  // K13 sq and p)
   float u0, u1;      // UrShape
   float sn, cs;      // sincos of the Angle (kept pixels only)
   float a0, a1, aA;  // J^T J v so far

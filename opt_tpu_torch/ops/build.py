@@ -66,11 +66,11 @@ SIGNATURES = {
     "opt_graph_hat_vertex": [_P] * 5 + [_I] + [_P] * 8 + [_I, _P],
     "opt_graph_hat_apply": [_P] * 6 + [_I] + [_P] * 9 + [_I, _P],
     "opt_poisson_cg_blocks": [_I],
-    "opt_poisson_cg": [_P] * 7 + [_I] * 5 + [_P],
-    "opt_resident_warp_blocks": [_I],
+    "opt_poisson_cg": [_P] * 8 + [_I] * 5 + [_P],
+    "opt_resident_warp_blocks": [_I, _I],
     "opt_resident_poisson_blocks": [_I],
-    "opt_resident_warp": [_P] * 12 + [_I] * 4 + [_P],
-    "opt_resident_poisson": [_P] * 7 + [_I] * 5 + [_P],
+    "opt_resident_warp": [_P] * 13 + [_I] * 4 + [_P],
+    "opt_resident_poisson": [_P] * 8 + [_I] * 5 + [_P],
     "opt_stencil_apply": [_P, _P] + [_I] * 4 + [_P] * 4,
     "opt_warp_slab_blocks": [_I] * 3,
     "opt_warp_slab_linearize": [_P] * 9 + [_I] * 7 + [_P],

@@ -109,13 +109,13 @@ def poisson_cg(b_chw, keep_hw, n_iters):
     lib = build.library()
     blocks = build.coop_blocks(lib.opt_poisson_cg_blocks(H * W),
                                "poisson_cg")
-    delta, r, p, ap = (torch.empty_like(b_chw) for _ in range(4))
+    # p_prev and p: a ping-pong pair (csrc/resident_pcg.cuh)
+    delta, r, p0, p1, ap = (torch.empty_like(b_chw) for _ in range(5))
     parts = torch.empty(2 * C * blocks, dtype=b_chw.dtype,
                         device=b_chw.device)
     rc = lib.opt_poisson_cg(
-        build.ptr(b_chw), build.ptr(keep_hw), build.ptr(delta), build.ptr(r),
-        build.ptr(p), build.ptr(ap), build.ptr(parts), C, H, W, int(n_iters),
-        blocks, build.stream())
+        *map(build.ptr, (b_chw, keep_hw, delta, r, p0, p1, ap, parts)), C, H,
+        W, int(n_iters), blocks, build.stream())
     build.check(rc, "poisson_cg")
     poisson_cg.launches += 1
     return delta

@@ -33,16 +33,18 @@ pipelined_pcg below), over an energy's hat apply and pipelined sweep:
              w = A_hat r, one K4 each (stream_solver.py:1216-1700).
 
 The resident-state solver (row 3, StreamSolver._build_kernel) is the
-third hat-space backend, outside Plan.solve's engines: StreamSolver runs
-each GN outer step's whole classic PCG as one launch of
+third hat-space backend: one launch per outer step of
 
-  K13 resident_pcg  lIterations of p = r + beta p, A_hat p, the dots and
-                    the updates, every vector kept in device memory (L2 at
-                    512^2) across three grid syncs an iteration
-                    (csrc/resident_kernels.cu), for image_warping and
-                    poisson_image_editing
+  K13 resident_pcg  lIterations of p = r + beta p_prev, A_hat p, the dots
+                    and the updates, every vector kept in device memory (L2
+                    at 512^2) across two grid syncs an iteration
+                    (csrc/resident_kernels.cu on csrc/resident_pcg.cuh), for
+                    image_warping and poisson_image_editing
 
-with the outer step on WarpOperator's K3 or on the plan's evaluator.
+It is the "cuda" engine's GN PCG (warp_resident_backend, given to
+WarpOperator by runtime/api.py for GN with the classic pcg_variant), and
+StreamSolver's, whose outer step runs on WarpOperator's K3 or on the plan's
+evaluator.
 
 Variant choice as in stream_solver.py:725-760: GN runs pipelined, LM
 classic; variant= picks either for either.  Every vector is the solver's
@@ -395,20 +397,25 @@ class WarpHat:
     def apply_plain(self, sq, p):
         return warp_hat_apply_plain(*self.operands.values(), sq, None, p)[1]
 
-    def blocks(self, lib):
-        return lib.opt_resident_warp_blocks(self.H * self.W)
+    def planes(self, v):
+        """v in the kernel's layout: the flat vector itself."""
+        return v
 
-    def launch(self, lib, sq, b_hat, delta, r, p, ap, parts, n_iters,
-               blocks):
+    flat = planes
+
+    def blocks(self, lib):
+        return lib.opt_resident_warp_blocks(self.H, self.W)
+
+    def launch(self, lib, vecs, n_iters, blocks):
         return lib.opt_resident_warp(
-            *map(build.ptr, (*self.operands.values(), sq, b_hat, delta, r, p,
-                             ap, parts)),
-            self.H, self.W, n_iters, blocks, build.stream())
+            *map(build.ptr, (*self.operands.values(), *vecs)), self.H,
+            self.W, n_iters, blocks, build.stream())
 
 
 class PoissonHat:
     """poisson_image_editing's A_hat for K13 on the flat (H, W, C) vector:
-    sq J^T J (sq v); sq is 0 at the excluded pixels."""
+    sq J^T J (sq v); sq is 0 at the excluded pixels.  The kernel runs on
+    (C, H, W) planes, as K12 does."""
 
     operands = {}
 
@@ -419,18 +426,23 @@ class PoissonHat:
         return {}
 
     def apply_plain(self, sq, p):
-        H, W, C = self.H, self.W, self.C
-        v = (sq * p).view(H, W, C).permute(2, 0, 1)
-        return sq * poisson_jtj_plain(v).permute(1, 2, 0).reshape(-1)
+        return sq * self.flat(poisson_jtj_plain(self.planes(sq * p)))
+
+    def planes(self, v):
+        """The flat (H, W, C) vector v as (C, H, W) planes."""
+        return v.view(self.H, self.W, self.C).permute(2, 0, 1).contiguous()
+
+    def flat(self, v):
+        """(C, H, W) planes as the flat (H, W, C) vector."""
+        return v.permute(1, 2, 0).reshape(-1)
 
     def blocks(self, lib):
         return lib.opt_resident_poisson_blocks(self.H * self.W)
 
-    def launch(self, lib, sq, b_hat, delta, r, p, ap, parts, n_iters,
-               blocks):
+    def launch(self, lib, vecs, n_iters, blocks):
         return lib.opt_resident_poisson(
-            *map(build.ptr, (sq, b_hat, delta, r, p, ap, parts)),
-            self.H, self.W, self.C, n_iters, blocks, build.stream())
+            *map(build.ptr, vecs), self.H, self.W, self.C, n_iters, blocks,
+            build.stream())
 
 
 def resident_pcg_plain(hat, sq, b_hat, n_iters):
@@ -452,24 +464,64 @@ def resident_pcg_plain(hat, sq, b_hat, n_iters):
     return delta
 
 
+def resident_pcg_phases_plain(hat, sq, b_hat, n_iters):
+    """resident_pcg_plain in K13's two phases (csrc/resident_pcg.cuh):
+    p = r + beta p_prev formed where the apply reads it, from beta = 0 and
+    p_prev = 0, then A_hat p and <p, A_hat p>; then the updates, <r, r>
+    and the next beta.  The same arithmetic in another order: it matches
+    resident_pcg_plain bit for bit."""
+    delta = torch.zeros_like(b_hat)
+    r = b_hat
+    p_prev = torch.zeros_like(b_hat)
+    an = torch.dot(r, r)
+    beta = torch.zeros_like(an)
+    for _ in range(n_iters):
+        # phase 1
+        p = r + beta * p_prev
+        ap = hat.apply_plain(sq, p)
+        alpha = _safe_div(an, torch.dot(p, ap))
+        # phase 2
+        delta = delta + alpha * p
+        r = r - alpha * ap
+        bn = torch.dot(r, r)
+        beta = _safe_div(bn, an)
+        an = bn
+        p_prev = p
+    return delta
+
+
 def resident_pcg(hat, sq, b_hat, n_iters):
     """K13: d_hat after n_iters of PCG in the hat space (hat: WarpHat or
-    PoissonHat) -- one cooperative launch on CUDA, plain on CPU."""
+    PoissonHat) -- one cooperative launch on CUDA, plain (in the kernel's
+    phase order) on CPU."""
     if build.all_on_cpu(sq, b_hat, *hat.operands.values()):
-        return resident_pcg_plain(hat, sq, b_hat, n_iters)
+        return resident_pcg_phases_plain(hat, sq, b_hat, n_iters)
     n = b_hat.numel()
     build.check_tensors("resident_pcg", {**hat.shapes(), "sq": (n,),
                                          "b_hat": (n,)},
                         **hat.operands, sq=sq, b_hat=b_hat)
     lib = build.library()
     blocks = build.coop_blocks(hat.blocks(lib), "resident_pcg")
-    delta, r, p, ap = (torch.empty_like(b_hat) for _ in range(4))
+    sq_k, b_k = hat.planes(sq), hat.planes(b_hat)
+    # p0 and p1: the ping-pong pair of p_prev and p
+    delta, r, p0, p1, ap = (torch.empty_like(b_k) for _ in range(5))
     parts = torch.empty(2 * blocks, dtype=b_hat.dtype, device=b_hat.device)
-    rc = hat.launch(lib, sq, b_hat, delta, r, p, ap, parts, int(n_iters),
-                    blocks)
+    rc = hat.launch(lib, (sq_k, b_k, delta, r, p0, p1, ap, parts),
+                    int(n_iters), blocks)
     build.check(rc, "resident_pcg")
     resident_pcg.launches += 1
-    return delta
+    return hat.flat(delta)
+
+
+def warp_resident_backend(op):
+    """K13 as a WarpOperator's pcg_backend (GN): one launch of
+    lIterations on A_hat at the operator's linearization point."""
+
+    def backend(sq, scs, b_hat, sp):
+        hat = WarpHat(op._x, op.ur, op.cons, op.mask_img, op.params)
+        return resident_pcg(hat, sq, b_hat, int(sp["lIterations"]))
+
+    return backend
 
 
 resident_pcg.launches = 0
@@ -516,13 +568,12 @@ class StreamSolver:
         plan = self.plan
         if plan.problem.energy is energies.image_warping:
             op = WarpOperator(data)
-            hat = lambda: WarpHat(op._x, op.ur, op.cons, op.mask_img,
-                                  op.params)
-        else:
-            op = plan_fns.EvaluatorOuter(plan.funcs, data, plan.layout)
-            hat = lambda: PoissonHat(*plan.funcs.unknown_shapes["X"])
+            op.pcg_backend = warp_resident_backend(op)
+            return op
+        op = plan_fns.EvaluatorOuter(plan.funcs, data, plan.layout)
+        hat = PoissonHat(*plan.funcs.unknown_shapes["X"])
         op.pcg_backend = lambda sq, scs, b_hat, sp: resident_pcg(
-            hat(), sq, b_hat, int(sp["lIterations"]))
+            hat, sq, b_hat, int(sp["lIterations"]))
         return op
 
     def solve(self, inputs):

@@ -18,6 +18,10 @@ in solver/core.py; this module supplies the operator behind its seam:
                      core of csrc/warp_tile.cuh)
   K2 pcg_update      the PCG Step2 (ops/pcg_update.py, csrc/pcg_update.cu)
 
+K1 and K2 run LM's PCG and GN's pipelined one; GN's classic PCG runs as one
+K13 launch an outer step (runtime/api.py gives WarpOperator
+ops/stream_cuda.warp_resident_backend as its pcg_backend).
+
 Beside each kernel wrapper sits a closed-form plain torch version of the
 same function (the *_plain functions); the wrappers run it for CPU tensors,
 and the tests hold it against the JAX package's linearize / jt / diag_jtj /

@@ -18,7 +18,8 @@ Five engines run the solver (solver/core.py) behind its operator seam:
 "torch", the plain engine for every supported energy
 (compile/plan_fns.FuncsOperator; on the card its graph reads run K9 and
 K10); "cuda", the hand-written whole-grid kernels for image_warping
-(ops/warp_cuda.WarpOperator); "stream", image_warping's inner PCG on the
+(ops/warp_cuda.WarpOperator; GN's classic PCG runs as one K13 launch an
+outer step, ops/stream_cuda.warp_resident_backend); "stream", image_warping's inner PCG on the
 streamed hat-space kernels (ops/stream_cuda.StreamOperator), for large
 grids; "stream3d", the volumetric ARAP energy's on its own hat-space
 kernels (ops/stream3d_cuda.Stream3DOperator); and "graph", a graph
@@ -360,7 +361,13 @@ class Plan:
 
     def _operator(self, engine, data):
         if engine == "cuda":
-            return warp_cuda.WarpOperator(data)
+            op = warp_cuda.WarpOperator(data)
+            if (not self.config.uses_lambda
+                    and self.config.pcg_variant == "classic"):
+                # GN's whole PCG as one K13 launch an outer step, as the
+                # JAX package's whole-solve kernel runs it in one kernel
+                op.pcg_backend = stream_cuda.warp_resident_backend(op)
+            return op
         if engine == "stream":
             return stream_cuda.StreamOperator(
                 data, self.config.uses_lambda, self.stream_variant)

@@ -905,6 +905,85 @@ def test_resident_pcg_kernel_matches_plain(dev, energy, n_iters):
                                                      n_iters))
 
 
+# the paths' grids: StreamSolver's and the cuda engine's GN at 512^2 (warp
+# and poisson), the cuda engine's explicit 2048^2 GN (warp), and K12's two
+# poisson paths
+PATH_CASES = [("warp", 512), ("poisson", 512), ("warp", 2048)]
+
+
+@pytest.mark.parametrize("energy,size", PATH_CASES)
+def test_resident_pcg_kernel_at_the_paths_grids(dev, energy, size):
+    """K13 on the two-sync core within 1e-5 of its plain loop after
+    RESIDENT_CHECK_ITERS iterations (where a stale neighbour read or a p
+    formed differently at two sites would show), and bit for bit on a
+    second launch."""
+    hat, sq, b_hat = chip_smoke.resident_operands(torch, energy, size, size,
+                                                  dev)
+    n = chip_smoke.RESIDENT_CHECK_ITERS
+    got = stream_cuda.resident_pcg(hat, sq, b_hat, n)
+    _close([got], [stream_cuda.resident_pcg_plain(hat, sq, b_hat, n)])
+    assert not got[sq == 0].any()
+    assert torch.equal(got, stream_cuda.resident_pcg(hat, sq, b_hat, n))
+
+
+@pytest.mark.parametrize("size", [512, 2048])
+def test_poisson_cg_kernel_at_the_paths_grids(dev, size):
+    """K12 with four channels, one all zero, on the paths' keep mask."""
+    from opt_tpu_torch.ops import poisson_cuda
+
+    keep = torch.as_tensor(
+        (chip_smoke.poisson_inputs(size, size)["M"][..., 0] == 0).astype(
+            np.float32), device=dev)
+    b = torch.as_tensor(np.random.RandomState(size).randn(
+        4, size, size).astype(np.float32), device=dev)
+    b[2] = 0.0
+    n = chip_smoke.RESIDENT_CHECK_ITERS
+    got = poisson_cuda.poisson_cg(b, keep, n)
+    _close([got], [poisson_cuda.poisson_cg_plain(b, keep, n)])
+    assert not got[2].any() and not got[:, keep == 0].any()
+    assert torch.equal(got, poisson_cuda.poisson_cg(b, keep, n))
+
+
+def test_cuda_engine_gn_runs_one_k13_launch_an_outer_step(dev):
+    """bench.py's main path, 512^2 GN 8x400 through engine="auto": the
+    cuda engine, 8 K13 launches and K3's 17, no K1 and no K2; the final
+    cost within COST_RTOL of the JAX package's CPU value."""
+    import opt_tpu_torch
+    from opt_tpu_torch import energies
+    from opt_tpu_torch.ops import pcg_update
+
+    plan = chip_smoke.new_plan(opt_tpu_torch, energies, "gaussNewtonGPU",
+                               512, 8, 400)
+    inputs = chip_smoke.warp_inputs(512, 512)
+    kernels = (stream_cuda.resident_pcg, warp_cuda.warp_linearize,
+               warp_cuda.warp_jtj_apply, pcg_update.pcg_update)
+    before = [k.launches for k in kernels]
+    cost = plan.solve(inputs)
+    assert plan.engine == "cuda"
+    assert [k.launches - b for k, b in zip(kernels, before)] == [8, 17, 0, 0]
+    assert cost == pytest.approx(chip_smoke.JAX_CPU_FINAL_COST,
+                                 rel=chip_smoke.COST_RTOL)
+
+
+def test_resident_launch_refused_raises_through_solve(dev, monkeypatch):
+    """The cuda engine's GN with K13's grid too large to be resident: the
+    cooperative launch is refused and Plan.solve raises CUDA's error; no
+    engine carries on with K1 and K2, and no launch is counted."""
+    from opt_tpu_torch.ops import build
+
+    lib = build.library()
+    monkeypatch.setattr(build, "library", lambda: _ProxyLibrary(lib))
+    plan = _mesh_plan("image_warping", "gaussNewtonGPU", (64, 48), 1, 2)
+    counts = [k.launches for k in (stream_cuda.resident_pcg,
+                                   warp_cuda.warp_jtj_apply)]
+    with pytest.raises(RuntimeError, match="resident_pcg: CUDA error"):
+        plan.solve(chip_smoke.warp_inputs(64, 48, seed=6), engine="cuda")
+    assert plan.engine == "cuda"
+    assert counts == [k.launches for k in (stream_cuda.resident_pcg,
+                                           warp_cuda.warp_jtj_apply)]
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("tile", [7, 32, 64])
 @pytest.mark.parametrize("shape", [(64, 128), (100, 200), (33, 450)])
 def test_stencil_kernel_matches_plain(dev, shape, tile):
@@ -1099,21 +1178,23 @@ class _ZeroWidthLibrary:
 
 
 def test_warp_march_launch_failure_raises_through_solve(dev, monkeypatch):
-    """K1 (the cuda engine) and K15 (a solve over a mesh of slabs) refused
-    their launch raise out of Plan.solve with CUDA's error: no engine
-    catches it and carries on, and no launch is counted."""
+    """K1 (the cuda engine's LM: its GN runs K13) and K15 (a solve over a
+    mesh of slabs) refused their launch raise out of Plan.solve with CUDA's
+    error: no engine catches it and carries on, and no launch is
+    counted."""
     from opt_tpu_torch.ops import build, slab_cuda as sc
     from opt_tpu_torch.parallel.mesh import make_mesh
 
     lib = build.library()
     monkeypatch.setattr(build, "library", lambda: _ZeroWidthLibrary(lib))
-    plan = _mesh_plan("image_warping", "gaussNewtonGPU", (64, 48), 1, 2)
     inputs = chip_smoke.warp_inputs(64, 48, seed=6)
+    lm = _mesh_plan("image_warping", "LMGPU", (64, 48), 1, 2)
     n = warp_cuda.warp_jtj_apply.launches
     with pytest.raises(RuntimeError, match="warp_jtj_apply: CUDA error"):
-        plan.solve(inputs, engine="cuda")
-    assert plan.engine == "cuda"
+        lm.solve(inputs, engine="cuda")
+    assert lm.engine == "cuda"
     assert warp_cuda.warp_jtj_apply.launches == n
+    plan = _mesh_plan("image_warping", "gaussNewtonGPU", (64, 48), 1, 2)
     n = sc.warp_slab_apply.launches
     with pytest.raises(RuntimeError, match="warp_slab_apply: CUDA error"):
         plan.solve(inputs, engine="stream", mesh=make_mesh(4, device="cuda"))
@@ -1123,8 +1204,9 @@ def test_warp_march_launch_failure_raises_through_solve(dev, monkeypatch):
 
 @pytest.mark.parametrize("W,H", [(37, 23), (2048, 2048)])
 def test_gather_form_kernels_repeat_bit_for_bit(dev, W, H):
-    """K4 (GN and LM), K5 (GN and LM) and K13 keep warp_energy.cuh's
-    gather form: two calls on the same operands match bit for bit."""
+    """K4 (GN and LM) and K5 (GN and LM) keep warp_energy.cuh's gather
+    form, and K13 its loop's fixed-tree partials: two calls on the same
+    operands match bit for bit."""
     x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
                                                               dev, seed=12)
     alpha = torch.tensor(0.37, dtype=torch.float32, device=dev)

@@ -21,7 +21,7 @@ def test_import_loads_no_jax():
         "import sys, opt_tpu_torch\n"
         "import opt_tpu_torch.ops.warp_cuda, opt_tpu_torch.ops.build\n"
         "import opt_tpu_torch.ops.stream_cuda, opt_tpu_torch.ops.vol_cuda\n"
-        "import opt_tpu_torch.ops.stream3d_cuda, chip_smoke\n"
+        "import opt_tpu_torch.ops.stream3d_cuda, chip_smoke, chip_compare\n"
         "import opt_tpu_torch.ops.graph_cuda\n"
         "import opt_tpu_torch.ops.poisson_cuda\n"
         "import opt_tpu_torch.ops.halo_stencil\n"
