@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
 """Two trees of the port on one NVIDIA GPU, in turns: the whole-loop
-kernels and the 512x512 main path.
+kernels, the outer-step kernels and the apply kernels beside them, and
+the main paths.
 
     python3 chip_compare.py OTHER_TREE
 
 OTHER_TREE is another checkout of this repository (say a `git archive` of
 the parent commit, unpacked under the ignored build/).  Each tree runs in a
 process of its own, in the order other, this, this, other, with its own
-kernel build, and prints, tagged with the tree:
+kernel build (ptxas's registers and spills printed where the process built
+it), and prints, tagged with the tree:
   - the profiler's device microseconds a launch (chip_smoke's
     device_us_per_launch, 10 launches after 10 in its warm-up step) of
     K13 resident_pcg (image_warping 512x512 x400 and 2048x2048 x100,
     poisson 512x512 x100) and K12 poisson_cg (four channels, one all
     zero, 512x512 x400 and 2048x2048 x100), on chip_smoke's operands;
+  - the same of K3 warp_linearize in each mode (J^T F and diag, the cost
+    alone, the model cost) on the 2048x2048 grid and on its 4 slabs, K8
+    vol_linearize in each mode on the 128^3 volume and on its 4 D slabs,
+    and the apply kernels on the cores they share: K1 warp_jtj_apply (GN
+    and LM's ctc) at 2048x2048, K15 warp_slab_apply on the 4 slabs, K6
+    vol_hat_apply (GN, p_prev) at 128^3 and K16 vol_slab_apply on its 4
+    slabs;
   - the best of 3 warm solves (chip_smoke.best_of_3) of image_warping
     512x512 GN 8x400 through engine="auto" (bench.py's main path) and
     2048x2048 GN 8x100 on engine="cuda", and the profiler's device busy
-    share of the first (chip_smoke.profile_call).
-Both trees must carry chip_smoke.py with those functions and K12 and
-K13's wrappers.
+    share of the first (chip_smoke.profile_call); then 2048x2048 GN 8x100
+    and volumetric ARAP 128^3 GN 8x100 through engine="auto" ("stream"
+    and "stream3d", pipelined).
+Both trees must carry chip_smoke.py with those functions and the kernels'
+wrappers.
 Exits non-zero where torch sees no CUDA device.
 """
 
@@ -64,6 +75,12 @@ def measure(root, tag):
     cs.device_us_per_launch(torch, fns, tag, n=10)
     del fns
     torch.cuda.empty_cache()
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"{tag} ptxas: {line.strip()}")
+    cs.device_us_per_launch(torch, outer_step_fns(torch, cs, dev), tag,
+                            n=10)
+    torch.cuda.empty_cache()
 
     plan = cs.new_plan(opt_tpu_torch, energies, "gaussNewtonGPU", 512, 8,
                        400)
@@ -81,7 +98,67 @@ def measure(root, tag):
           f"{plan.solve(inputs, engine='cuda')!r}")
     cs.best_of_3(torch, plan, inputs, "cuda", f"{tag} 2048x2048 GN 8x100",
                  card)
+    print(f"{tag} 2048x2048 GN 8x100 auto: cost {plan.solve(inputs)!r} "
+          f"engine {plan.engine} {plan.variant}")
+    cs.best_of_3(torch, plan, inputs, "auto", f"{tag} 2048x2048 GN 8x100",
+                 card)
+    plan = cs.new_vol_plan(opt_tpu_torch, energies, "gaussNewtonGPU", None)
+    inputs = cs.volume_inputs(cs.VOL)
+    print(f"{tag} 128^3 GN 8x100 auto: cost {plan.solve(inputs)!r} engine "
+          f"{plan.engine} {plan.variant}")
+    cs.best_of_3(torch, plan, inputs, "auto", f"{tag} 128^3 GN 8x100", card)
     return 0
+
+
+def outer_step_fns(torch, cs, dev):
+    """name -> a call of one kernel: K3 and K8 in each mode, whole and on
+    cs.SHARD_SLABS slabs, and K1, K15, K6 and K16 beside them, on
+    chip_smoke's operands at the paths' sizes."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+    from opt_tpu_torch.ops import stream3d_cuda, vol_cuda, warp_cuda
+
+    big, vol, S = cs.BIG, cs.VOL, cs.SHARD_SLABS
+    fns = {}
+    x, ur, cons, mask, params, t = cs.kernel_operands(torch, big, big, dev)
+    xs, urs, cs_, ms, _, ts, g = cs.slab_operands(torch, big, big, S, dev)
+    for mode, kw, kws in (("full", {}, {}),
+                          ("cost", {"cost_only": True}, {"cost_only": True}),
+                          ("model", {"delta": t["delta"]},
+                           {"delta": ts["delta"]})):
+        fns[f"K3 {mode} {big}"] = (
+            lambda kw=kw: warp_cuda.warp_linearize(x, ur, cons, mask, params,
+                                                   **kw))
+        fns[f"K3 {mode} {big} on {S} slabs"] = (
+            lambda kw=kws: sc.warp_slab_linearize(xs, urs, cs_, ms, params,
+                                                  g, **kw))
+    for name, ctc in (("K1", None), ("K1 ctc", t["ctc"])):
+        fns[f"{name} {big}"] = (
+            lambda ctc=ctc: warp_cuda.warp_jtj_apply(x, t["p"], ur, cons,
+                                                     mask, params, ctc))
+    fns[f"K15 {big} on {S} slabs"] = (
+        lambda: sc.warp_slab_apply(xs, urs, cs_, ms, params, ts["sq"],
+                                   ts["p"], g))
+    xv, urv, consv, pv, tv = cs.volume_kernel_operands(torch, vol, vol, vol,
+                                                       dev)
+    xvs, urvs, consvs, _, tvs, gv = cs.vol_slab_operands(torch, vol, vol,
+                                                         vol, S, dev)
+    for mode, kw, kws in (("full", {}, {}),
+                          ("cost", {"cost_only": True}, {"cost_only": True}),
+                          ("model", {"delta": tv["delta"]},
+                           {"delta": tvs["delta"]})):
+        fns[f"K8 {mode} {vol}^3"] = (
+            lambda kw=kw: vol_cuda.vol_linearize(xv, urv, consv, pv, **kw))
+        fns[f"K8 {mode} {vol}^3 on {S} slabs"] = (
+            lambda kw=kws: sc.vol_slab_linearize(xvs, urvs, consvs, pv, gv,
+                                                 **kw))
+    beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
+    fns[f"K6 p_prev {vol}^3"] = (
+        lambda: stream3d_cuda.vol_hat_apply(xv, urv, consv, pv, tv["sq"],
+                                            None, tv["r"], tv["p"], beta))
+    fns[f"K16 {vol}^3 on {S} slabs"] = (
+        lambda: sc.vol_slab_apply(xvs, urvs, consvs, pv, tvs["sq"],
+                                  tvs["p"], gv))
+    return fns
 
 
 def main(argv):

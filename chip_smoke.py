@@ -10,8 +10,10 @@ Phases (any failure raises and the exit code is non-zero):
   3. hold K1 warp_jtj_apply (GN and with LM's ctc), K2 pcg_update and K3
      warp_linearize against their plain torch versions on the card at
      512x512, on seeded inputs with one excluded pixel and a constraint
-     band, time both with CUDA events, and print the profiler's device
-     time per launch of K1 in both modes beside its bound;
+     band, time both with CUDA events, print the profiler's device
+     time per launch of K1 and K3 in both modes beside their bounds
+     (the kernels line's K1 and K3 rows), and call K3 in both modes
+     twice, bit for bit;
   4. run the first path: image_warping 512x512, Gauss-Newton 8 outer x
      400 PCG iterations, through NewState(device="cuda") ... plan.solve
      with engine="auto"; check that it picked the CUDA engine, that every
@@ -28,7 +30,9 @@ Phases (any failure raises and the exit code is non-zero):
      2048x2048: K4 warp_hat_apply (GN, and LM with scs), K5
      warp_pipelined_sweep (GN, and its LM mode), K1 (GN and with LM's
      ctc, and the profiler's device time per launch of both beside its
-     bound), K3's model cost, K2's hat mode (GN and LM);
+     bound), K3 in each mode (J^T F and diag, cost only, model cost: each
+     twice, bit for bit, and its device time per launch beside its bound),
+     K2's hat mode (GN and LM);
   7. run the slice-2 paths through engine="auto", each with its own
      launch counts zeroed just before it and read just after, its final
      cost held against the JAX package's CPU value:
@@ -43,8 +47,9 @@ Phases (any failure raises and the exit code is non-zero):
   9. hold the slice-3 kernels and modes against their plain versions at
      37x23x11 and 128^3: K6 vol_hat_apply (GN and LM, with and without
      p_prev), K7 vol_pipelined_sweep (GN and LM), K8 vol_linearize (J^T F
-     and diag, cost only, model cost); and at 128^3 the profiler's device
-     time per launch of K6 in each mode beside its bound;
+     and diag, cost only, model cost; each twice, bit for bit); and at
+     128^3 the profiler's device time per launch of K6 and K8 in each mode
+     beside its bound;
  10. run the slice-3 paths, volumetric ARAP at 128^3, 8x100, on
      bench.aux_volumetric's inputs, each with its own launch counts, its
      final cost against the JAX package's CPU value and its warm solve
@@ -110,8 +115,9 @@ Phases (any failure raises and the exit code is non-zero):
      paths' slab shapes, 2048x2048 and 128^3 on 4 slabs (the first, two
      interior and the last slab each held on its own): K15
      warp_slab_apply, K3's global-offset mode (J^T F and diag, cost only,
-     model cost), K16 vol_slab_apply, K8's global-offset mode, and the
-     profiler's device time per launch of K15 and K16 beside their bounds;
+     model cost), K16 vol_slab_apply, K8's global-offset mode, K3's and
+     K8's modes each twice, bit for bit, and the profiler's device time per
+     launch of K15, K16 and each mode of K3 and K8 beside their bounds;
  16. run the slice-6 paths through Plan.solve(inputs, mesh=make_mesh(4)),
      the slab form of a mesh on the one card, each with its own launch
      counts (K15 or K16 against the count its loops make), its final cost
@@ -260,22 +266,27 @@ RIGID_COST_MAX = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Operations per pixel, voxel or element of each kernel and mode, counted
-# from its source with a sincosf taken as 40: K3, K4 and K5 evaluate five
-# rotations a pixel, K7 and K8's full mode seven rotations (21 sincosf)
-# and twelve derivative products a voxel, K8's cost modes one rotation
-# and six products, K2 a few per element.  K1, K15, K6 and K16 count the
-# function's work, which their march and tile cores do.  K1: one rotation
-# a pixel (40) and four residuals (each G = R'(a) e, jp and both halves,
-# about 26), the fit, LM's ctc and the dot (16); K15 the same, with
-# sq . p in and sq . a out and no dot.  K6 and K16: one rotation a voxel
-# (3 sincosf and its derivatives, 155) and six residuals (each G = dR/da
-# e, jv and both halves, about 110), the fit and the output (45).
+# from its source with a sincosf taken as 40: K4 and K5 evaluate five
+# rotations a pixel, K7 seven rotations (21 sincosf) and twelve derivative
+# products a voxel, K2 a few per element.  K1, K3, K15, K6, K8 and K16
+# count the function's work, which their march and tile cores do.  K1:
+# one rotation a pixel (40) and four residuals (each G = R'(a) e, jp and
+# both halves, about 26), the fit, LM's ctc and the dot (16); K15 the
+# same, with sq . p in and sq . a out and no dot.  K3: one rotation a
+# pixel and four residuals (the value, 12; G, J^T F's and diag's halves
+# and r^2, about 24 more in full mode, 12 for the model cost's J delta),
+# the fit and the output.  K6 and K16: one rotation a voxel (3 sincosf and
+# its derivatives, 155) and six residuals (each G = dR/da e, jv and both
+# halves, about 110), the fit and the output (45).  K8: one rotation a
+# voxel and six residuals (the value, 33; in full mode G, J^T F's and
+# diag's halves, about 72 more; the model cost's J delta, 45 more), the
+# fit and the output.
 OPS = {"warp_jtj_apply": 160, "warp_slab_apply": 166,
-       "warp_linearize": 300,
-       "warp_linearize(cost)": 100, "warp_hat_apply": 300,
+       "warp_linearize": 200, "warp_linearize(cost)": 100,
+       "warp_linearize(model_cost)": 150, "warp_hat_apply": 300,
        "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 860,
-       "vol_pipelined_sweep": 1650, "vol_linearize": 1450,
-       "vol_linearize(cost)": 300, "vol_linearize(model_cost)": 600,
+       "vol_pipelined_sweep": 1650, "vol_linearize": 820,
+       "vol_linearize(cost)": 370, "vol_linearize(model_cost)": 640,
        # per element (K12, K13 poisson) or pixel (K13 warp) an iteration:
        # the apply, the two dots (4) and the three vector updates (6).
        # Poisson's apply counts what the function needs: J^T J p as
@@ -573,6 +584,11 @@ def check_kernels(torch, dev):
     device_vs_bound(torch, out, {k: cases[k][0] for k in cases
                                  if k.startswith("warp_jtj_apply")},
                     "warp_jtj_apply_kernel", f"{W}x{H}")
+    outer = [k for k in cases if k.startswith("warp_linearize")]
+    check_repeats(torch, cases, outer)
+    # K3 at the main path's grid: the kernels line's row
+    device_vs_bound(torch, out, {k: cases[k][0] for k in outer},
+                    "warp_linearize_kernel", f"{W}x{H}")
     return out
 
 
@@ -651,12 +667,23 @@ def check_big_kernels(torch, dev):
         **jtj_apply_cases(warp_cuda, x, ur, cons, mask, params, t,
                           ("warp_jtj_apply(2048)",
                            "warp_jtj_apply(ctc, 2048)")),
+        "warp_linearize(2048)": (
+            lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params),
+            lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask,
+                                                   params),
+            consts + nbytes(x, x, x), OPS["warp_linearize"] * px),
+        "warp_linearize(cost_only, 2048)": (
+            lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params,
+                                             cost_only=True),
+            lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask, params,
+                                                   cost_only=True),
+            consts + nbytes(x), OPS["warp_linearize(cost)"] * px),
         "warp_linearize(model_cost)": (
             lambda: warp_cuda.warp_linearize(x, ur, cons, mask, params,
                                              delta=t["delta"]),
             lambda: warp_cuda.warp_linearize_plain(x, ur, cons, mask, params,
                                                    delta=t["delta"]),
-            consts + nbytes(x) + vec, OPS["warp_linearize(cost)"] * px),
+            consts + nbytes(x) + vec, OPS["warp_linearize(model_cost)"] * px),
         "pcg_update(hat)": (
             lambda: k2.pcg_update(alpha, p, t["ap"], t["delta"], t["r"],
                                   None),
@@ -674,7 +701,27 @@ def check_big_kernels(torch, dev):
     device_vs_bound(torch, out, {k: cases[k][0] for k in cases
                                  if k.startswith("warp_jtj_apply")},
                     "warp_jtj_apply_kernel", f"{BIG}x{BIG}")
+    outer = [k for k in cases if k.startswith("warp_linearize")]
+    check_repeats(torch, cases, outer)
+    device_vs_bound(torch, out, {k: cases[k][0] for k in outer},
+                    "warp_linearize_kernel", f"{BIG}x{BIG}")
     return out
+
+
+def check_repeats(torch, cases, names):
+    """Each named case's kernel twice on the same inputs: every output the
+    same bit for bit (fixed-tree partials, no atomics)."""
+    for name in names:
+        a, b = cases[name][0](), cases[name][0]()
+        both = zip(*(v if isinstance(v, tuple) else (v,) for v in (a, b)))
+        same = all((u is None and v is None) or (
+            u is not None and v is not None and torch.equal(u, v))
+            for u, v in both)
+        print(f"kernel {name}: two calls "
+              f"{'bit for bit' if same else 'DIFFER: FAIL'}")
+        if not same:
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 "differ")
 
 
 def volume_kernel_operands(torch, W, H, D, dev, seed=1):
@@ -772,7 +819,6 @@ def check_slab_kernels(torch, dev, reps):
     warp = [(n, BIG, 2), (n, BIG, 1)]
     split = lambda out: sum((per_slab(v, S, warp) for v in (
         out if isinstance(out, tuple) else (out,))), ())
-    consts = nbytes(ur, cons, mask, params)
     angle = x.view(S, 3, -1)[:, 2]  # each slab's Angle rows
     own_px, own_vec = S * n * BIG, 3 * S * n * BIG * 4
     # K15 reads one halo row a side of each extended slab (which holds he
@@ -780,6 +826,16 @@ def check_slab_kernels(torch, dev, reps):
     ring = (n + 2) / (n + 2 * he)
     slab_apply_bytes = (int(ring * nbytes(ur, mask, angle, t["sq"], t["p"]))
                         + 8 * own_px + nbytes(params) + own_vec)
+
+    def lin_bytes(own, face, out=0):
+        """K3's offset mode reads `own` floats at each own pixel (Offset,
+        Angle, UrShape, Mask, Constraints; delta in the model cost) and
+        `face` on the one face row a side of each slab (Offset, UrShape,
+        Mask; the Angle in full mode, delta's Offset in the model cost),
+        and writes `out` bytes."""
+        return (4 * (own * own_px + face * 2 * S * BIG) + nbytes(params)
+                + out)
+
     cases = {
         "warp_slab_apply": (
             lambda: split(sc.warp_slab_apply(x, ur, cons, mask, params,
@@ -792,21 +848,19 @@ def check_slab_kernels(torch, dev, reps):
                                                  g)),
             lambda: split(sc.warp_slab_linearize_plain(
                 x, ur, cons, mask, params, g)),
-            consts + nbytes(x) + 2 * own_vec,
-            OPS["warp_linearize"] * own_px),
+            lin_bytes(8, 6, 2 * own_vec), OPS["warp_linearize"] * own_px),
         "warp_linearize(slab, cost_only)": (
             lambda: split(sc.warp_slab_linearize(x, ur, cons, mask, params,
                                                  g, cost_only=True)),
             lambda: split(sc.warp_slab_linearize_plain(
                 x, ur, cons, mask, params, g, cost_only=True)),
-            consts + nbytes(x), OPS["warp_linearize(cost)"] * own_px),
+            lin_bytes(8, 5), OPS["warp_linearize(cost)"] * own_px),
         "warp_linearize(slab, model_cost)": (
             lambda: split(sc.warp_slab_linearize(
                 x, ur, cons, mask, params, g, delta=t["delta"])),
             lambda: split(sc.warp_slab_linearize_plain(
                 x, ur, cons, mask, params, g, delta=t["delta"])),
-            consts + nbytes(x, t["delta"]),
-            OPS["warp_linearize(cost)"] * own_px),
+            lin_bytes(11, 7), OPS["warp_linearize(model_cost)"] * own_px),
     }
     print(f"slab kernels at {BIG}x{BIG} on {S} slabs of {n} rows "
           f"(halo {he}):")
@@ -814,6 +868,10 @@ def check_slab_kernels(torch, dev, reps):
     device_vs_bound(torch, out,
                     {"warp_slab_apply": cases["warp_slab_apply"][0]},
                     "warp_slab_apply_kernel", f"{BIG}x{BIG} on {S} slabs")
+    outer = [k for k in cases if k.startswith("warp_linearize")]
+    check_repeats(torch, cases, outer)
+    device_vs_bound(torch, out, {k: cases[k][0] for k in outer},
+                    "warp_linearize_kernel", f"{BIG}x{BIG} on {S} slabs")
 
     xv, urv, consv, paramsv, tv, gv = vol_slab_operands(
         torch, VOL, VOL, VOL, S, dev)
@@ -821,7 +879,6 @@ def check_slab_kernels(torch, dev, reps):
     vol = [(n, VOL, VOL, 3)] * 2
     split = lambda out: sum((per_slab(v, S, vol) for v in (
         out if isinstance(out, tuple) else (out,))), ())
-    consts = nbytes(urv, consv, paramsv)
     angle = xv.view(S, 2, -1)[:, 1]
     own_vox, own_vec = S * n * VOL * VOL, 6 * S * n * VOL * VOL * 4
     # K16 reads one halo plane a side of each extended slab (which holds
@@ -830,6 +887,16 @@ def check_slab_kernels(torch, dev, reps):
     ring = (n + 2) / (n + 2 * gv[1])
     slab_apply_bytes = (int(ring * nbytes(urv, angle, tv["sq"], tv["p"]))
                         + 4 * own_vox + nbytes(paramsv) + own_vec)
+
+    def lin_bytes(own, face, out=0):
+        """K8's offset mode reads `own` floats at each own voxel (Offset,
+        Angle, UrShape, Constraints; delta in the model cost) and `face` on
+        the one face plane a side of each slab (Offset, UrShape; the Angle
+        in full mode, delta's Offset in the model cost), and writes `out`
+        bytes."""
+        return (4 * (own * own_vox + face * 2 * S * VOL * VOL)
+                + nbytes(paramsv) + out)
+
     cases = {
         "vol_slab_apply": (
             lambda: split(sc.vol_slab_apply(xv, urv, consv, paramsv,
@@ -842,27 +909,29 @@ def check_slab_kernels(torch, dev, reps):
                                                 gv)),
             lambda: split(sc.vol_slab_linearize_plain(xv, urv, consv,
                                                       paramsv, gv)),
-            consts + nbytes(xv) + 2 * own_vec,
-            OPS["vol_linearize"] * own_vox),
+            lin_bytes(12, 9, 2 * own_vec), OPS["vol_linearize"] * own_vox),
         "vol_linearize(slab, cost_only)": (
             lambda: split(sc.vol_slab_linearize(
                 xv, urv, consv, paramsv, gv, cost_only=True)),
             lambda: split(sc.vol_slab_linearize_plain(
                 xv, urv, consv, paramsv, gv, cost_only=True)),
-            consts + nbytes(xv), OPS["vol_linearize(cost)"] * own_vox),
+            lin_bytes(12, 6), OPS["vol_linearize(cost)"] * own_vox),
         "vol_linearize(slab, model_cost)": (
             lambda: split(sc.vol_slab_linearize(
                 xv, urv, consv, paramsv, gv, delta=tv["delta"])),
             lambda: split(sc.vol_slab_linearize_plain(
                 xv, urv, consv, paramsv, gv, delta=tv["delta"])),
-            consts + nbytes(xv, tv["delta"]),
-            OPS["vol_linearize(model_cost)"] * own_vox),
+            lin_bytes(18, 9), OPS["vol_linearize(model_cost)"] * own_vox),
     }
     print(f"slab kernels at {VOL}^3 on {S} slabs of {n} planes "
           f"(halo {gv[1]}):")
     out.update(check_cases(torch, cases, reps))
     device_vs_bound(torch, out, {"vol_slab_apply": cases["vol_slab_apply"][0]},
                     "vol_slab_apply_kernel", f"{VOL}^3 on {S} slabs")
+    outer = [k for k in cases if k.startswith("vol_linearize")]
+    check_repeats(torch, cases, outer)
+    device_vs_bound(torch, out, {k: cases[k][0] for k in outer},
+                    "vol_linearize_kernel", f"{VOL}^3 on {S} slabs")
     return out
 
 
@@ -922,11 +991,15 @@ def check_vol_kernels(torch, dev, dims, reps):
         consts + 2 * vec, OPS["vol_linearize(model_cost)"] * voxels)
     print(f"slice-3 kernels at {Wv}x{Hv}x{Dv}:")
     out = check_cases(torch, cases, reps)
-    if dims == (VOL,) * 3:  # K6 in every mode, as the paths launch it
+    outer = [k for k in cases if k.startswith("vol_linearize")]
+    check_repeats(torch, cases, outer)
+    if dims == (VOL,) * 3:  # K6 and K8 in every mode, as the paths launch
         device_vs_bound(torch, out, {
             name: case[0] for name, case in cases.items()
             if name.startswith("vol_hat_apply")}, "vol_hat_apply_kernel",
             f"{Wv}x{Hv}x{Dv}")
+        device_vs_bound(torch, out, {k: cases[k][0] for k in outer},
+                        "vol_linearize_kernel", f"{Wv}x{Hv}x{Dv}")
     return out
 
 
@@ -2094,10 +2167,10 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": total[name],
                      "max_abs_err": err,
-                     # K1, K6, K11, K15 and K16: the profiled device time
-                     # a launch (K11: its two passes together); the CUDA
-                     # events' time a call where the profiler saw no
-                     # launch
+                     # K1, K3, K6, K8, K11, K15 and K16: the profiled
+                     # device time a launch (K11: its two passes
+                     # together); the CUDA events' time a call where the
+                     # profiler saw no launch
                      "ms": timings[case].get("device_ms",
                                              timings[case]["ms"]),
                      "ms_from": ("profiler" if "device_ms" in timings[case]

@@ -2,7 +2,9 @@
 // K15 warp_slab_apply (stream_kernels.cu) and K13 resident_pcg's apply
 // (resident_kernels.cu): J^T J v for image_warping
 // (warp_energy.cuh states the energy), each pixel's data read once, its
-// sincosf taken once, each residual formed once.
+// sincosf taken once, each residual formed once.  K3 warp_linearize's
+// march (warp_kernels.cu) walks the grid the same way with these loaders,
+// chunk rule and block sum.
 //
 // What bounded the gather form on this card.  The gather form, which K4
 // and K5 keep (warp_energy.cuh jtj_at, one thread a pixel), takes
@@ -53,6 +55,7 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "tile_launch.cuh"
 #include "warp_energy.cuh"
 
 namespace {
@@ -248,26 +251,12 @@ int warp_tile_gx(int W) {
   return ((W + kOwn - 1) / kOwn + kStripWarps - 1) / kStripWarps;
 }
 
-// The blocks of `kernel` the current device holds at once: its occupancy
-// at kStripThreads threads a block (the kernel's registers), times the
-// SMs; cached per device.  Minus the CUDA error where a query fails.
+// The blocks of `kernel` the current device holds at once at
+// kStripThreads threads a block (tile_capacity); minus the CUDA error
+// where the query fails
 template <class Kernel>
 int warp_tile_capacity(Kernel kernel) {
-  constexpr int kDevices = 64;
-  static int cached[kDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return -(int)err;
-  if (dev < kDevices && cached[dev] > 0) return cached[dev];
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kStripThreads, 0);
-  if (err != cudaSuccess) return -(int)err;
-  const int capacity = std::max(1, sms * per_sm);
-  if (dev < kDevices) cached[dev] = capacity;
-  return capacity;
+  return tile_capacity(kernel, kStripThreads, 0);
 }
 
 // The own rows a warp marches over S slabs of n rows, W columns, on a card

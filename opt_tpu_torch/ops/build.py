@@ -49,12 +49,14 @@ SIGNATURES = {
     "opt_warp_blocks": [_I, _I],
     "opt_warp_apply_blocks": [_I, _I],
     "opt_warp_jtj_apply": [_P] * 9 + [_I, _I, _P],
+    "opt_warp_linearize_blocks": [_I] * 4,
     "opt_warp_linearize": [_P] * 9 + [_I, _I, _I, _P],
     "opt_warp_hat_apply": [_P] * 13 + [_I, _I, _P],
     "opt_warp_pipelined_sweep": [_P] * 20 + [_I, _I, _P],
     "opt_pcg_update_blocks": [_I],
     "opt_pcg_update": [_P] * 12 + [_I, _I, _P],
     "opt_vol_blocks": [_I, _I, _I],
+    "opt_vol_linearize_blocks": [_I] * 5,
     "opt_vol_linearize": [_P] * 8 + [_I] * 4 + [_P],
     "opt_vol_hat_blocks": [_I, _I, _I],
     "opt_vol_hat_apply": [_P] * 12 + [_I] * 3 + [_P],
@@ -72,7 +74,6 @@ SIGNATURES = {
     "opt_resident_warp": [_P] * 13 + [_I] * 4 + [_P],
     "opt_resident_poisson": [_P] * 8 + [_I] * 5 + [_P],
     "opt_stencil_apply": [_P, _P] + [_I] * 4 + [_P] * 4,
-    "opt_warp_slab_blocks": [_I] * 3,
     "opt_warp_slab_linearize": [_P] * 9 + [_I] * 7 + [_P],
     "opt_warp_slab_apply": [_P] * 8 + [_I] * 6 + [_P],
     "opt_vol_slab_linearize": [_P] * 8 + [_I] * 8 + [_P],
@@ -167,8 +168,8 @@ def check(rc, name):
 
 def coop_blocks(n, name):
     """The grid of a launch sized by the occupancy query (a cooperative
-    launch, or K1's march), from its *_blocks entry's value n: a block
-    count, or minus the CUDA error of the query."""
+    launch, or a march: K1, K3, K8), from its *_blocks entry's value n: a
+    block count, or minus the CUDA error of the query."""
     if n <= 0:
         check(-n, name)
     return n

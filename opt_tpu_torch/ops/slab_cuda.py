@@ -212,8 +212,9 @@ def warp_slab_linearize(x, ur, cons, mask, params, g, cost_only=False,
     n, he, row0, total = g
     lib = build.library()
     mode, jtf, diag = _mode(cost_only, delta, 3 * S * n * W, x)
-    parts = torch.empty(lib.opt_warp_slab_blocks(S, n, W), dtype=x.dtype,
-                        device=x.device)
+    parts = torch.empty(build.coop_blocks(
+        lib.opt_warp_linearize_blocks(S, n, W, mode), "warp_slab_linearize"),
+        dtype=x.dtype, device=x.device)
     rc = lib.opt_warp_slab_linearize(
         *map(build.ptr, (x, ur, cons, mask, params, delta, jtf, diag,
                          parts)), S, n, he, W, row0, total, mode,
@@ -258,8 +259,9 @@ def vol_slab_linearize(x, ur, cons, params, g, cost_only=False,
     n, he, d0, total = g
     lib = build.library()
     mode, jtf, diag = _mode(cost_only, delta, 6 * S * n * H * W, x)
-    parts = torch.empty(lib.opt_vol_blocks(S * n, H, W), dtype=x.dtype,
-                        device=x.device)
+    parts = torch.empty(build.coop_blocks(
+        lib.opt_vol_linearize_blocks(S, n, H, W, mode), "vol_slab_linearize"),
+        dtype=x.dtype, device=x.device)
     rc = lib.opt_vol_slab_linearize(
         *map(build.ptr, (x, ur, cons, params, delta, jtf, diag, parts)), S,
         n, he, H, W, d0, total, mode, build.stream())

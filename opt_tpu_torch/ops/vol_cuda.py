@@ -250,8 +250,6 @@ def vol_linearize(x, ur, cons, params, cost_only=False, delta=None):
     build.check_tensors("vol_linearize", shapes(D, H, W), **build.present(
         x=x, ur=ur, cons=cons, params=params, delta=delta))
     lib = build.library()
-    parts = torch.empty(lib.opt_vol_blocks(D, H, W), dtype=x.dtype,
-                        device=x.device)
     jtf = diag = None
     if delta is not None:
         mode = 2
@@ -261,6 +259,9 @@ def vol_linearize(x, ur, cons, params, cost_only=False, delta=None):
         mode = 0
         jtf = torch.empty_like(x)
         diag = torch.empty_like(x)
+    parts = torch.empty(build.coop_blocks(
+        lib.opt_vol_linearize_blocks(1, D, H, W, mode), "vol_linearize"),
+        dtype=x.dtype, device=x.device)
     rc = lib.opt_vol_linearize(
         build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(params),
         build.ptr(delta), build.ptr(jtf), build.ptr(diag), build.ptr(parts),

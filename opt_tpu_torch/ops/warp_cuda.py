@@ -246,8 +246,6 @@ def warp_linearize(x, ur, cons, mask, params, cost_only=False, delta=None):
     build.check_tensors("warp_linearize", _shapes(H, W), **build.present(
         x=x, ur=ur, cons=cons, mask=mask, params=params, delta=delta))
     lib = build.library()
-    parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=x.dtype,
-                        device=x.device)
     jtf = diag = None
     if delta is not None:
         mode = 2
@@ -257,6 +255,9 @@ def warp_linearize(x, ur, cons, mask, params, cost_only=False, delta=None):
         mode = 0
         jtf = torch.empty_like(x)
         diag = torch.empty_like(x)
+    parts = torch.empty(build.coop_blocks(
+        lib.opt_warp_linearize_blocks(1, H, W, mode), "warp_linearize"),
+        dtype=x.dtype, device=x.device)
     rc = lib.opt_warp_linearize(
         build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(mask),
         build.ptr(params), build.ptr(delta), build.ptr(jtf), build.ptr(diag),

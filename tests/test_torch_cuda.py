@@ -373,10 +373,12 @@ def test_stream3d_backends_agree_on_the_card(dev, kind):
 
 
 def test_stream3d_launch_failure_raises_with_no_fallback(dev):
-    """A volume of more D planes than a grid's z extent (65,535) makes K8
-    and K7 fail to launch: K8 raises out of Plan.solve, whose first step is
-    the cost, and K7 from its wrapper.  K6 marches chunks of planes, so it
-    fails past 65,535 chunks and raises from its wrapper."""
+    """A volume of more D planes than a grid's z extent (65,535) makes K7
+    fail to launch: it raises out of Plan.solve (after K8's outer step and
+    K6's w_0) and from its wrapper.  K8 marches chunks of planes sized to
+    one wave, so it runs at that depth and agrees with its plain version;
+    K6 marches chunks of a fixed number of planes, so it fails past 65,535
+    chunks and raises from its wrapper."""
     D = 70000
     plan = _vol_plan("gaussNewtonGPU", (1, 1, D), 1, 2)
     rng = np.random.RandomState(0)
@@ -386,11 +388,18 @@ def test_stream3d_launch_failure_raises_with_no_fallback(dev):
               "UrShape": rng.randn(*shape).astype(np.float32),
               "Constraints": rng.randn(*shape).astype(np.float32),
               "w_fitSqrt": 1.0, "w_regSqrt": 1.0}
-    with pytest.raises(RuntimeError, match="vol_linearize: CUDA error"):
+    n = vol_cuda.vol_linearize.launches
+    with pytest.raises(RuntimeError,
+                       match="vol_pipelined_sweep: CUDA error"):
         plan.solve(inputs, engine="stream3d")
     assert plan.engine == "stream3d"
+    assert vol_cuda.vol_linearize.launches > n
     x, data = plan.bind(inputs)
     op = plan._operator("stream3d", data)
+    for kw in ({}, {"cost_only": True}):
+        _close(vol_cuda.vol_linearize(x, op.ur, op.cons, op.params, **kw),
+               vol_cuda.vol_linearize_plain(x, op.ur, op.cons, op.params,
+                                            **kw))
     v = torch.ones_like(x)
     op._x = x
     Dk = 65536 * _hat_chunk()
@@ -1322,3 +1331,167 @@ def test_sharded_engines_agree_on_the_card(dev, kind):
     halo = plan.solve(chip_smoke.warp_inputs(96, 64, seed=6), engine="halo",
                       mesh=mesh)
     assert np.isfinite(halo)
+
+
+# K3 and K8 on the tile cores (the linearize marches of csrc/warp_kernels.cu
+# and csrc/vol_kernels.cu): each mode, the whole grid at 37x23(x11) and
+# three slabs of one own row or plane, against the plain versions, and
+# twice, bit for bit
+LINEARIZE_MODES = ["full", "cost_only", "model_cost"]
+
+
+def _mode_kw(mode, delta):
+    return {"full": {}, "cost_only": {"cost_only": True},
+            "model_cost": {"delta": delta}}[mode]
+
+
+def _same(a, b):
+    return all((u is None and v is None) or torch.equal(u, v)
+               for u, v in zip(a, b))
+
+
+def _linearize_case(dev, kernel, layout, mode):
+    """(kernel call, plain call) of K3 or K8 in `mode` on the whole grid or
+    on 3 slabs of one own row or plane (halo 2)."""
+    from opt_tpu_torch.ops import slab_cuda as sc
+
+    if kernel == "K3" and layout == "whole":
+        x, ur, cons, mask, params, t = _march_operands(37, 23, dev, seed=21)
+        cons[0, -1, 1] = -0.5
+        args = (x, ur, cons, mask, params)
+        kw = _mode_kw(mode, t["delta"])
+        return (lambda: warp_cuda.warp_linearize(*args, **kw),
+                lambda: warp_cuda.warp_linearize_plain(*args, **kw))
+    if kernel == "K3":
+        x, ur, cons, mask, params, t, g = chip_smoke.slab_operands(
+            torch, 37, 3, 3, dev, seed=22)
+        args = (x, ur, cons, mask, params, g)
+        kw = _mode_kw(mode, t["delta"])
+        return (lambda: sc.warp_slab_linearize(*args, **kw),
+                lambda: sc.warp_slab_linearize_plain(*args, **kw))
+    if layout == "whole":
+        x, ur, cons, params, t = chip_smoke.volume_kernel_operands(
+            torch, *chip_smoke.SMALL_VOL, dev, seed=23)
+        args = (x, ur, cons, params)
+        kw = _mode_kw(mode, t["delta"])
+        return (lambda: vol_cuda.vol_linearize(*args, **kw),
+                lambda: vol_cuda.vol_linearize_plain(*args, **kw))
+    x, ur, cons, params, t, g = chip_smoke.vol_slab_operands(
+        torch, 37, 23, 3, 3, dev, seed=24)
+    args = (x, ur, cons, params, g)
+    kw = _mode_kw(mode, t["delta"])
+    return (lambda: sc.vol_slab_linearize(*args, **kw),
+            lambda: sc.vol_slab_linearize_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("mode", LINEARIZE_MODES)
+@pytest.mark.parametrize("layout", ["whole", "slabs"])
+@pytest.mark.parametrize("kernel", ["K3", "K8"])
+def test_linearize_tile_cores_match_plain_and_repeat(dev, kernel, layout,
+                                                     mode):
+    kern, plain = _linearize_case(dev, kernel, layout, mode)
+    counted = warp_cuda.warp_linearize if kernel == "K3" else (
+        vol_cuda.vol_linearize)
+    n = counted.launches
+    got = kern()
+    assert counted.launches == n + 1
+    _close(got, plain())
+    assert _same(got, kern())
+
+
+def test_linearize_blocks_give_every_partial(dev):
+    """The cost partials the wrappers allocate are the *_linearize_blocks
+    exports' counts, and each launch writes every one of them (NaN
+    before), at the paths' sizes and a ragged one, in each mode."""
+    from opt_tpu_torch.ops import build
+
+    lib = build.library()
+    ptr = build.ptr
+    for W, H in ((37, 23), (chip_smoke.BIG, chip_smoke.BIG)):
+        x, ur, cons, mask, params, t = chip_smoke.kernel_operands(
+            torch, W, H, dev, seed=25)
+        for mode in range(3):
+            n = lib.opt_warp_linearize_blocks(1, H, W, mode)
+            assert n > 0
+            parts = torch.full((n,), float("nan"), device=dev)
+            out = [torch.empty_like(x) if mode == 0 else None
+                   for _ in range(2)]
+            build.check(lib.opt_warp_linearize(
+                ptr(x), ptr(ur), ptr(cons), ptr(mask), ptr(params),
+                ptr(t["delta"] if mode == 2 else None), ptr(out[0]),
+                ptr(out[1]), ptr(parts), H, W, mode, build.stream()),
+                "warp_linearize")
+            assert not torch.isnan(parts).any()
+            kw = _mode_kw(LINEARIZE_MODES[mode], t["delta"])
+            assert float(torch.sum(parts)) == float(warp_cuda.warp_linearize(
+                x, ur, cons, mask, params, **kw)[2])
+    for dims in (chip_smoke.SMALL_VOL, (chip_smoke.VOL,) * 3):
+        x, ur, cons, params, t = chip_smoke.volume_kernel_operands(
+            torch, *dims, dev, seed=26)
+        D, H, W = ur.shape[:3]
+        for mode in range(3):
+            n = lib.opt_vol_linearize_blocks(1, D, H, W, mode)
+            assert n > 0
+            parts = torch.full((n,), float("nan"), device=dev)
+            out = [torch.empty_like(x) if mode == 0 else None
+                   for _ in range(2)]
+            build.check(lib.opt_vol_linearize(
+                ptr(x), ptr(ur), ptr(cons), ptr(params),
+                ptr(t["delta"] if mode == 2 else None), ptr(out[0]),
+                ptr(out[1]), ptr(parts), D, H, W, mode, build.stream()),
+                "vol_linearize")
+            assert not torch.isnan(parts).any()
+            kw = _mode_kw(LINEARIZE_MODES[mode], t["delta"])
+            assert float(torch.sum(parts)) == float(vol_cuda.vol_linearize(
+                x, ur, cons, params, **kw)[2])
+    # slabs: the partials come slab by slab, as many as the export says
+    x, ur, cons, mask, params, t, g = chip_smoke.slab_operands(
+        torch, 37, 21, 3, dev, seed=27)
+    S, (n, he, row0, total) = 3, g
+    for mode in range(3):
+        parts = torch.full((lib.opt_warp_linearize_blocks(S, n, 37, mode),),
+                           float("nan"), device=dev)
+        out = [x.new_empty(3 * S * n * 37) if mode == 0 else None
+               for _ in range(2)]
+        build.check(lib.opt_warp_slab_linearize(
+            ptr(x), ptr(ur), ptr(cons), ptr(mask), ptr(params),
+            ptr(t["delta"] if mode == 2 else None), ptr(out[0]), ptr(out[1]),
+            ptr(parts), S, n, he, 37, row0, total, mode, build.stream()),
+            "warp_slab_linearize")
+        assert not torch.isnan(parts).any() and parts.numel() % S == 0
+
+
+def test_linearize_refuses_an_empty_grid(dev):
+    """K3 and K8 at W = 0 or H = 0 (or D = 0): the launch is refused (an
+    empty grid), the wrapper raises CUDA's error and counts no launch; the
+    chunk rules divide by no zero on the way."""
+    from opt_tpu_torch.ops import build
+
+    lib = build.library()
+    params = torch.tensor([0.5, 1.0], device=dev)
+    for W, H in ((0, 5), (5, 0)):
+        for mode in range(3):
+            assert lib.opt_warp_linearize_blocks(1, H, W, mode) == 0
+            assert lib.opt_vol_linearize_blocks(1, 3, H, W, mode) == 0
+        x = torch.zeros(3 * H * W, device=dev)
+        ur = torch.zeros(H, W, 2, device=dev)
+        mask = torch.zeros(H, W, 1, device=dev)
+        n = warp_cuda.warp_linearize.launches
+        for kw in ({}, {"cost_only": True}, {"delta": x}):
+            with pytest.raises(RuntimeError,
+                               match="warp_linearize: CUDA error"):
+                warp_cuda.warp_linearize(x, ur, ur, mask, params, **kw)
+        assert warp_cuda.warp_linearize.launches == n
+        xv = torch.zeros(6 * 3 * H * W, device=dev)
+        urv = torch.zeros(3, H, W, 3, device=dev)
+        n = vol_cuda.vol_linearize.launches
+        for kw in ({}, {"cost_only": True}, {"delta": xv}):
+            with pytest.raises(RuntimeError,
+                               match="vol_linearize: CUDA error"):
+                vol_cuda.vol_linearize(xv, urv, urv, params, **kw)
+        assert vol_cuda.vol_linearize.launches == n
+    xv = torch.zeros(0, device=dev)
+    urv = torch.zeros(0, 4, 4, 3, device=dev)
+    with pytest.raises(RuntimeError, match="vol_linearize: CUDA error"):
+        vol_cuda.vol_linearize(xv, urv, urv, params, cost_only=True)
+    torch.cuda.synchronize()

@@ -129,7 +129,8 @@ def test_slice6_kernels_are_bound():
     nvcc and no card."""
     from opt_tpu_torch.ops import slab_cuda
 
-    for name in ("opt_warp_slab_blocks", "opt_warp_slab_linearize",
+    for name in ("opt_warp_linearize_blocks", "opt_warp_slab_linearize",
+                 "opt_vol_linearize_blocks",
                  "opt_warp_slab_apply", "opt_vol_slab_linearize",
                  "opt_vol_slab_apply"):
         assert name in build.SIGNATURES
