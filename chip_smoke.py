@@ -1549,15 +1549,15 @@ def expected_launches(kind, engine, n_outer, n_linear, period=10):
     k3 = 1 + n_outer * (3 if kind == "LMGPU" else 2)
     n = n_outer * n_linear
     if engine == "cuda" and kind != "LMGPU":  # one K13 an outer step
-        return {"resident_pcg": n_outer, "warp_linearize": k3}
+        return {"K13.resident_pcg": n_outer, "K3.warp_linearize": k3}
     if engine == "cuda":
-        return {"warp_jtj_apply": n + resets, "pcg_update": n - resets,
-                "warp_linearize": k3}
+        return {"K1.warp_jtj_apply": n + resets, "K2.pcg_update": n - resets,
+                "K3.warp_linearize": k3}
     if kind == "LMGPU":  # the classic backend
-        return {"warp_hat_apply": n + resets, "pcg_update": n,
-                "warp_linearize": k3}
-    return {"warp_hat_apply": n_outer, "warp_pipelined_sweep": n,
-            "warp_linearize": k3}
+        return {"K4.warp_hat_apply": n + resets, "K2.pcg_update": n,
+                "K3.warp_linearize": k3}
+    return {"K4.warp_hat_apply": n_outer, "K5.warp_pipelined_sweep": n,
+            "K3.warp_linearize": k3}
 
 
 def expected_launches3d(kind, variant, n_outer, n_linear, period=10):
@@ -1567,16 +1567,16 @@ def expected_launches3d(kind, variant, n_outer, n_linear, period=10):
     k8 = 1 + n_outer * (3 if lm else 2)
     n = n_outer * n_linear
     if variant == "classic":
-        return {"vol_hat_apply": n + resets, "pcg_update": n,
-                "vol_linearize": k8}
+        return {"K6.vol_hat_apply": n + resets, "K2.pcg_update": n,
+                "K8.vol_linearize": k8}
     # w_0 per outer step, and r = b - A delta, w = A r at each reset
-    return {"vol_hat_apply": n_outer + 2 * resets, "vol_pipelined_sweep": n,
-            "vol_linearize": k8}
+    return {"K6.vol_hat_apply": n_outer + 2 * resets,
+            "K7.vol_pipelined_sweep": n, "K8.vol_linearize": k8}
 
 
 def expected_launches_graph(kind, n_outer, n_linear, period=10):
-    """Launch counts one arap solve on "graph" makes, by kernel name.  A
-    cost gathers both blocks (unknowns, constants) of both slots: 4 K9.
+    """Launch counts one arap solve on "graph" makes, by kernel name (an
+    apply launches K11's edge pass and its vertex pass).  A cost gathers both blocks (unknowns, constants) of both slots: 4 K9.
     An outer step: J^T F (the vjp's forward, 4 K9; its transpose of the
     unknown block, 2 K10), the leaf partials (4 K9), diag (one K10 per
     slot), the new cost (4 K9) and in LM the model cost (1 K9 for both
@@ -1584,9 +1584,10 @@ def expected_launches_graph(kind, n_outer, n_linear, period=10):
     lm = kind == "LMGPU"
     resets = n_outer * (n_linear // period) if lm else 0
     n = n_outer * n_linear
-    return {"graph_hat_apply": n + resets, "pcg_update": n,
-            "graph_gather": 4 + n_outer * (13 if lm else 12),
-            "graph_scatter": 4 * n_outer}
+    return {"K11.graph_hat_edge": n + resets,
+            "K11.graph_hat_vertex": n + resets, "K2.pcg_update": n,
+            "K9.graph_gather": 4 + n_outer * (13 if lm else 12),
+            "K10.graph_scatter": 4 * n_outer}
 
 
 def expected_slab_applies(variant, lm, n_outer, n_linear, period=10):
@@ -1596,6 +1597,15 @@ def expected_slab_applies(variant, lm, n_outer, n_linear, period=10):
     if lm:
         return n_outer * (n_linear + n_linear // period)
     return n_outer * (n_linear + (variant == "pipelined"))
+
+
+# the kernels line's rows whose launches are not the one counter of their
+# name (runtime/trace.LAUNCHES): K3 and K8 whole and on slabs, and K11's
+# applies, one edge pass each
+ROW_COUNTERS = {"warp_linearize": ("K3.warp_linearize",
+                                   "K3.warp_slab_linearize"),
+                "vol_linearize": ("K8.vol_linearize", "K8.vol_slab_linearize"),
+                "graph_hat_apply": ("K11.graph_hat_edge",)}
 
 
 def check_launches(label, launches, want):
@@ -1803,7 +1813,7 @@ def run_slice5_paths(torch, drive_call, card):
         out, ms, launches = drive_call(solve)
         print(f"path {label} {n_iters}: PoissonCudaSolver {ms:.1f} ms "
               f"(cold) launches={launches}")
-        check_launches(label, launches, {"poisson_cg": 1})
+        check_launches(label, launches, {"K12.poisson_cg": 1})
         check_finite(label, out["x"]["X"], (size, size, 4))
         check_cost(label, out["final_cost"], want_cost)
         best = best_of_3_call(torch, solve, f"{label} {n_iters} (warm)",
@@ -1825,9 +1835,9 @@ def run_slice5_paths(torch, drive_call, card):
         out, ms, launches = drive_call(solve)
         print(f"path {label} {n_outer}x{n_linear}: StreamSolver {ms:.1f} ms "
               f"(cold) launches={launches}")
-        want = {"resident_pcg": n_outer}
+        want = {"K13.resident_pcg": n_outer}
         if warp:  # K3: the initial cost, then linearize and cost a step
-            want["warp_linearize"] = 1 + 2 * n_outer
+            want["K3.warp_linearize"] = 1 + 2 * n_outer
         check_launches(label, launches, want)
         for n, shape in plan.funcs.unknown_shapes.items():
             check_finite(f"{label} {n}", out["x"][n], shape)
@@ -1850,7 +1860,7 @@ def run_slice5_paths(torch, drive_call, card):
     label = f"stencil {BIG_STENCIL}x{BIG_STENCIL}"
     print(f"path {label}: stencil_apply {ms:.1f} ms (cold) "
           f"launches={launches}")
-    check_launches(label, launches, {"stencil_apply": 1})
+    check_launches(label, launches, {"K14.stencil_apply": 1})
     rel, _ = rel_err([out], [halo_stencil.stencil_apply_plain(img, offsets,
                                                                weights)])
     print(f"{label}: max rel err {rel:.3e} against the plain version")
@@ -1898,10 +1908,11 @@ def run_shard_paths(torch, drive_call, card):
         want = {}
         if engine != "halo":  # the halo path runs the plain evaluator
             lm = kind == "LMGPU"
-            apply = "vol_slab_apply" if vol else "warp_slab_apply"
+            apply = "K16.vol_slab_apply" if vol else "K15.warp_slab_apply"
             want = {apply: expected_slab_applies(want_variant, lm, n_outer,
                                                  n_linear),
-                    "vol_linearize" if vol else "warp_linearize":
+                    "K8.vol_slab_linearize" if vol
+                    else "K3.warp_slab_linearize":
                         1 + n_outer * (3 if lm else 2)}
             print(f"{name}: {apply} launched {launches[apply]} times, the "
                   f"loops make {want[apply]}")
@@ -1948,10 +1959,12 @@ def main():
         return 1
     import opt_tpu_torch
     from opt_tpu_torch import energies
-    from opt_tpu_torch.ops import build, pcg_update as k2
-    from opt_tpu_torch.ops import graph_cuda, stream3d_cuda, stream_cuda
-    from opt_tpu_torch.ops import halo_stencil, poisson_cuda, vol_cuda
-    from opt_tpu_torch.ops import slab_cuda, warp_cuda
+    from opt_tpu_torch.ops import build
+    # every kernel module, so that LAUNCHES holds each kernel's counter
+    from opt_tpu_torch.ops import (  # noqa: F401
+        graph_cuda, halo_stencil, pcg_update, poisson_cuda, slab_cuda,
+        stream3d_cuda, stream_cuda, vol_cuda, warp_cuda)
+    from opt_tpu_torch.runtime.trace import LAUNCHES
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
@@ -1973,23 +1986,14 @@ def main():
 
     timings = check_kernels(torch, dev)
 
-    kernels = (warp_cuda.warp_jtj_apply, k2.pcg_update,
-               warp_cuda.warp_linearize, stream_cuda.warp_hat_apply,
-               stream_cuda.warp_pipelined_sweep, stream3d_cuda.vol_hat_apply,
-               stream3d_cuda.vol_pipelined_sweep, vol_cuda.vol_linearize,
-               graph_cuda.graph_gather, graph_cuda.graph_scatter,
-               graph_cuda.graph_hat_apply, poisson_cuda.poisson_cg,
-               stream_cuda.resident_pcg, halo_stencil.stencil_apply,
-               slab_cuda.warp_slab_apply, slab_cuda.vol_slab_apply)
-    total = {k.__name__: 0 for k in kernels}
+    total = dict.fromkeys(LAUNCHES, 0)
 
     def drive_call(fn):
-        """fn() with every launch count zeroed just before it and read just
-        after: (its result, ms, launches)."""
-        for k in kernels:
-            k.launches = 0
+        """fn() with the launch counts read just before it and just after:
+        (its result, ms, the launches it made, name -> count)."""
+        before = dict(LAUNCHES)
         out, ms = timed_call(torch, fn)
-        launches = {k.__name__: k.launches for k in kernels}
+        launches = {k: n - before[k] for k, n in LAUNCHES.items()}
         for name, n in launches.items():
             total[name] += n
         return out, ms, launches
@@ -2164,8 +2168,11 @@ def main():
     ):
         err = max(v["max_abs_err"] for k, v in timings.items()
                   if k.split("(")[0] == name)
+        counters = ROW_COUNTERS.get(name) or [
+            k for k in total if k.endswith("." + name)]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": repl, "launches": total[name],
+                     "replaces": repl,
+                     "launches": sum(total[k] for k in counters),
                      "max_abs_err": err,
                      # K1, K3, K6, K8, K11, K15 and K16: the profiled
                      # device time a launch (K11: its two passes

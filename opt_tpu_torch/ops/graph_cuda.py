@@ -52,6 +52,7 @@ import torch
 from torch.func import vjp as _vjp
 
 from ..dsl import expr as E
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 from .stream_cuda import classic_pcg
 
@@ -206,6 +207,7 @@ def _float_dtype(name, t):
     return t.dtype
 
 
+@kernel("K9.graph_gather")
 def graph_gather(v, idx):
     """K9: out[..., c] = v[idx[...], c] -- kernel on CUDA, plain on CPU.
     v is an (N, C) float32 or float64 block, idx an int32 index of any
@@ -228,10 +230,11 @@ def graph_gather(v, idx):
         v.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, C,
         dt is torch.float64, build.stream())
     build.check(rc, "graph_gather")
-    graph_gather.launches += 1
+    LAUNCHES["K9.graph_gather"] += 1
     return out
 
 
+@kernel("K10.graph_scatter")
 def graph_scatter(x, idx, order, rowptr):
     """K10: out[w, c] = sum of x[e, c] over the edges e with idx[e] = w --
     kernel on CUDA (a segmented sum over the CSR incidence (order,
@@ -258,7 +261,7 @@ def graph_scatter(x, idx, order, rowptr):
         x.data_ptr(), order.data_ptr(), rowptr.data_ptr(), out.data_ptr(), n,
         C, dt is torch.float64, build.stream())
     build.check(rc, "graph_scatter")
-    graph_scatter.launches += 1
+    LAUNCHES["K10.graph_scatter"] += 1
     return out
 
 
@@ -279,6 +282,7 @@ def _hat_checks(name, t, **tensors):
                         meta=t.meta, c=t.c, partials=t.partials, **tensors))
 
 
+@kernel("K11.graph_hat_edge")
 def graph_hat_edge(t, sq, r, p_prev=None, beta=None):
     """K11's edge pass alone -- kernel on CUDA, plain on CPU: the rows c
     as graph_hat_edge_plain lays them out; on CUDA the views of the
@@ -291,10 +295,11 @@ def graph_hat_edge(t, sq, r, p_prev=None, beta=None):
         t.meta.numel(), build.ptr(sq), build.ptr(r), build.ptr(p_prev),
         build.ptr(beta), build.ptr(t.c), build.stream())
     build.check(rc, "graph_hat_edge")
-    graph_hat_edge.launches += 1
+    LAUNCHES["K11.graph_hat_edge"] += 1
     return t.c_rows
 
 
+@kernel("K11.graph_hat_vertex")
 def graph_hat_vertex(t, c, sq, scs, r, p_prev=None, beta=None):
     """K11's vertex pass alone on the edge rows c -- kernel on CUDA, plain
     on CPU: (p, A_hat p, partials); on CUDA c is copied into the tables' c
@@ -317,10 +322,11 @@ def graph_hat_vertex(t, c, sq, scs, r, p_prev=None, beta=None):
         build.ptr(p) if p_prev is not None else None, build.ptr(ap),
         build.ptr(t.partials), t.n_verts, build.stream())
     build.check(rc, "graph_hat_vertex")
-    graph_hat_vertex.launches += 1
+    LAUNCHES["K11.graph_hat_vertex"] += 1
     return p, ap, t.partials
 
 
+@kernel("K11.graph_hat_apply", counts=False)
 def graph_hat_apply(t, sq, scs, r, p_prev=None, beta=None):
     """K11: (p, A_hat p, <p, A_hat p>) -- kernel on CUDA (the edge pass,
     then the vertex pass, one C call), plain on CPU.  t: HatTables; beta is
@@ -340,15 +346,10 @@ def graph_hat_apply(t, sq, scs, r, p_prev=None, beta=None):
         build.ptr(p) if p_prev is not None else None, build.ptr(ap),
         build.ptr(t.c), build.ptr(t.partials), t.n_verts, build.stream())
     build.check(rc, "graph_hat_apply")
-    graph_hat_apply.launches += 1
+    LAUNCHES["K11.graph_hat_edge"] += 1
+    LAUNCHES["K11.graph_hat_vertex"] += 1
     return p, ap, torch.sum(t.partials)
 
-
-graph_gather.launches = 0
-graph_scatter.launches = 0
-graph_hat_edge.launches = 0
-graph_hat_vertex.launches = 0
-graph_hat_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 
 from ..compile.evaluate import shift_read
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 
 # the most taps K14 takes (kMaxTaps in csrc/stencil_kernels.cu)
@@ -29,6 +30,7 @@ def stencil_apply_plain(img, offsets, weights):
     return sum(w * shift_read(img, o) for o, w in zip(offsets, weights))
 
 
+@kernel("K14.stencil_apply")
 def stencil_apply(img, offsets, weights, tile=64):
     """K14: the weighted stencil sum of a (H, W) float32 image -- kernel on
     CUDA, plain on CPU.  tile: rows per block."""
@@ -56,8 +58,7 @@ def stencil_apply(img, offsets, weights, tile=64):
         ctypes.cast(dx, ctypes.c_void_p), ctypes.cast(dy, ctypes.c_void_p),
         ctypes.cast(w, ctypes.c_void_p), build.stream())
     build.check(rc, "stencil_apply")
-    stencil_apply.launches += 1
+    LAUNCHES["K14.stencil_apply"] += 1
     return out
 
 
-stencil_apply.launches = 0

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 
 
@@ -40,6 +41,7 @@ def pcg_update_plain(alpha, p, ap, delta, r, pre, b=None, dot=torch.dot):
     return delta, r, z, rz, q
 
 
+@kernel("K2.pcg_update")
 def pcg_update(alpha, p, ap, delta, r, pre, b=None):
     """Step2 through the K2 kernel on CUDA tensors (plain on CPU tensors).
 
@@ -70,10 +72,9 @@ def pcg_update(alpha, p, ap, delta, r, pre, b=None):
         build.ptr(r_out), build.ptr(z_out), build.ptr(rz_parts),
         build.ptr(q_parts), n, int(b is not None), build.stream())
     build.check(rc, "pcg_update")
-    pcg_update.launches += 1
+    LAUNCHES["K2.pcg_update"] += 1
     q = torch.sum(q_parts) if b is not None else None
     return (delta_out, r_out, r_out if z_out is None else z_out,
             torch.sum(rz_parts), q)
 
 
-pcg_update.launches = 0

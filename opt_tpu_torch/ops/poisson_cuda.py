@@ -28,6 +28,7 @@ from ..compile.evaluate import shift_read
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
 from ..solver.core import _safe_div
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 
 # the energy's stencil, (dx, dy) = (column, row) offsets, in its order
@@ -95,6 +96,7 @@ def poisson_cg_plain(b_chw, keep_hw, n_iters):
 # ---------------------------------------------------------------------------
 
 
+@kernel("K12.poisson_cg")
 def poisson_cg(b_chw, keep_hw, n_iters):
     """K12: delta (C, H, W) after n_iters of CG per channel -- one
     cooperative launch on CUDA, plain on CPU."""
@@ -117,11 +119,10 @@ def poisson_cg(b_chw, keep_hw, n_iters):
         *map(build.ptr, (b_chw, keep_hw, delta, r, p0, p1, ap, parts)), C, H,
         W, int(n_iters), blocks, build.stream())
     build.check(rc, "poisson_cg")
-    poisson_cg.launches += 1
+    LAUNCHES["K12.poisson_cg"] += 1
     return delta
 
 
-poisson_cg.launches = 0
 
 
 # ---------------------------------------------------------------------------

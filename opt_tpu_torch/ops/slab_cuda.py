@@ -54,11 +54,11 @@ from __future__ import annotations
 
 import torch
 
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
-from .vol_cuda import (linearize_fields as vol_fields, vol_jtj_apply_plain,
-                       vol_linearize)
+from .vol_cuda import linearize_fields as vol_fields, vol_jtj_apply_plain
 from .warp_cuda import (_split, linearize_fields as warp_fields,
-                        warp_jtj_apply_plain, warp_linearize)
+                        warp_jtj_apply_plain)
 
 
 def _own(g):
@@ -176,6 +176,7 @@ def _check_geometry(name, g, rows):
                          f"a halo of {he}")
 
 
+@kernel("K15.warp_slab_apply")
 def warp_slab_apply(x, ur, cons, mask, params, sq, p, g):
     """K15: A_hat p at every slab's own rows -- kernel on CUDA, plain on
     CPU."""
@@ -193,14 +194,15 @@ def warp_slab_apply(x, ur, cons, mask, params, sq, p, g):
         *map(build.ptr, (x, ur, cons, mask, params, sq, p, ap)), S, n, he,
         W, row0, total, build.stream())
     build.check(rc, "warp_slab_apply")
-    warp_slab_apply.launches += 1
+    LAUNCHES["K15.warp_slab_apply"] += 1
     return ap
 
 
+@kernel("K3.warp_slab_linearize")
 def warp_slab_linearize(x, ur, cons, mask, params, g, cost_only=False,
                         delta=None):
     """K3's global-offset mode: (J^T F, diag, (S,) per-slab costs) --
-    kernel on CUDA, plain on CPU.  Counted as a K3 launch."""
+    kernel on CUDA, plain on CPU."""
     if build.all_on_cpu(x, ur, cons, mask, params, delta):
         return warp_slab_linearize_plain(x, ur, cons, mask, params, g,
                                          cost_only, delta)
@@ -220,10 +222,11 @@ def warp_slab_linearize(x, ur, cons, mask, params, g, cost_only=False,
                          parts)), S, n, he, W, row0, total, mode,
         build.stream())
     build.check(rc, "warp_slab_linearize")
-    warp_linearize.launches += 1
+    LAUNCHES["K3.warp_slab_linearize"] += 1
     return jtf, diag, parts.view(S, -1).sum(1)
 
 
+@kernel("K16.vol_slab_apply")
 def vol_slab_apply(x, ur, cons, params, sq, p, g):
     """K16: A_hat p at every D slab's own planes -- kernel on CUDA, plain
     on CPU."""
@@ -240,14 +243,15 @@ def vol_slab_apply(x, ur, cons, params, sq, p, g):
         *map(build.ptr, (x, ur, cons, params, sq, p, ap)), S, n, he, H, W,
         d0, total, build.stream())
     build.check(rc, "vol_slab_apply")
-    vol_slab_apply.launches += 1
+    LAUNCHES["K16.vol_slab_apply"] += 1
     return ap
 
 
+@kernel("K8.vol_slab_linearize")
 def vol_slab_linearize(x, ur, cons, params, g, cost_only=False,
                        delta=None):
     """K8's global-offset mode: (J^T F, diag, (S,) per-slab costs) --
-    kernel on CUDA, plain on CPU.  Counted as a K8 launch."""
+    kernel on CUDA, plain on CPU."""
     if build.all_on_cpu(x, ur, cons, params, delta):
         return vol_slab_linearize_plain(x, ur, cons, params, g, cost_only,
                                         delta)
@@ -266,7 +270,7 @@ def vol_slab_linearize(x, ur, cons, params, g, cost_only=False,
         *map(build.ptr, (x, ur, cons, params, delta, jtf, diag, parts)), S,
         n, he, H, W, d0, total, mode, build.stream())
     build.check(rc, "vol_slab_linearize")
-    vol_linearize.launches += 1
+    LAUNCHES["K8.vol_slab_linearize"] += 1
     return jtf, diag, parts.view(S, -1).sum(1)
 
 
@@ -280,5 +284,3 @@ def _mode(cost_only, delta, size, x):
     return 0, x.new_empty(size), x.new_empty(size)
 
 
-warp_slab_apply.launches = 0
-vol_slab_apply.launches = 0

@@ -41,6 +41,7 @@ import math
 
 import torch
 
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 from .stream_cuda import (check_two_buffers, check_variant, hat_pcg,
                           sweep_partials, sweep_sums, sweep_update_plain)
@@ -96,6 +97,7 @@ def vol_pipelined_sweep_plain(x, ur, cons, params, sq, scs, w_in, w_out, z,
 # ---------------------------------------------------------------------------
 
 
+@kernel("K6.vol_hat_apply")
 def vol_hat_apply(x, ur, cons, params, sq, scs, r, p_prev=None, beta=None):
     """K6: (p, A_hat p, <p, A_hat p>) -- kernel on CUDA, plain on CPU.
     beta is a 0-d device tensor, given with p_prev; p is a new buffer
@@ -124,10 +126,11 @@ def vol_hat_apply(x, ur, cons, params, sq, scs, r, p_prev=None, beta=None):
         build.ptr(beta), build.ptr(p) if p_prev is not None else None,
         build.ptr(ap), build.ptr(parts), D, H, W, build.stream())
     build.check(rc, "vol_hat_apply")
-    vol_hat_apply.launches += 1
+    LAUNCHES["K6.vol_hat_apply"] += 1
     return p, ap, torch.sum(parts)
 
 
+@kernel("K7.vol_pipelined_sweep")
 def vol_pipelined_sweep(x, ur, cons, params, sq, scs, w_in, w_out, z, s, p,
                         delta, r, alpha, beta, b_hat=None):
     """K7: one pipelined PCG sweep, updating z, s, p, delta, r in place
@@ -161,12 +164,10 @@ def vol_pipelined_sweep(x, ur, cons, params, sq, scs, w_in, w_out, z, s, p,
         build.ptr(g_parts), build.ptr(d_parts), build.ptr(q_parts), D, H, W,
         build.stream())
     build.check(rc, "vol_pipelined_sweep")
-    vol_pipelined_sweep.launches += 1
+    LAUNCHES["K7.vol_pipelined_sweep"] += 1
     return sweep_sums(g_parts, d_parts, q_parts)
 
 
-vol_hat_apply.launches = 0
-vol_pipelined_sweep.launches = 0
 
 
 # ---------------------------------------------------------------------------

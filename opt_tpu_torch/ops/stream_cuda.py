@@ -64,6 +64,7 @@ import torch
 from .. import energies
 from ..compile import plan_fns
 from ..solver.core import SolverConfig, _safe_div, make_solver
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 from .pcg_update import pcg_update
 from .poisson_cuda import is_poisson, poisson_jtj_plain
@@ -158,6 +159,7 @@ def warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs, w_in,
 # ---------------------------------------------------------------------------
 
 
+@kernel("K4.warp_hat_apply")
 def warp_hat_apply(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
                    beta=None):
     """K4: (p, A_hat p, <p, A_hat p>) -- kernel on CUDA, plain on CPU.
@@ -188,10 +190,11 @@ def warp_hat_apply(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
         build.ptr(p) if p_prev is not None else None, build.ptr(ap),
         build.ptr(parts), H, W, build.stream())
     build.check(rc, "warp_hat_apply")
-    warp_hat_apply.launches += 1
+    LAUNCHES["K4.warp_hat_apply"] += 1
     return p, ap, torch.sum(parts)
 
 
+@kernel("K5.warp_pipelined_sweep")
 def warp_pipelined_sweep(x, ur, cons, mask, params, sq, scs, w_in, w_out, z,
                          s, p, delta, r, alpha, beta, b_hat=None):
     """K5: one pipelined PCG sweep, updating z, s, p, delta, r in place
@@ -225,7 +228,7 @@ def warp_pipelined_sweep(x, ur, cons, mask, params, sq, scs, w_in, w_out, z,
         build.ptr(beta), build.ptr(g_parts), build.ptr(d_parts),
         build.ptr(q_parts), H, W, build.stream())
     build.check(rc, "warp_pipelined_sweep")
-    warp_pipelined_sweep.launches += 1
+    LAUNCHES["K5.warp_pipelined_sweep"] += 1
     return sweep_sums(g_parts, d_parts, q_parts)
 
 
@@ -247,8 +250,6 @@ def sweep_sums(g_parts, d_parts, q_parts):
             None if q_parts is None else torch.sum(q_parts))
 
 
-warp_hat_apply.launches = 0
-warp_pipelined_sweep.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -490,6 +491,7 @@ def resident_pcg_phases_plain(hat, sq, b_hat, n_iters):
     return delta
 
 
+@kernel("K13.resident_pcg")
 def resident_pcg(hat, sq, b_hat, n_iters):
     """K13: d_hat after n_iters of PCG in the hat space (hat: WarpHat or
     PoissonHat) -- one cooperative launch on CUDA, plain (in the kernel's
@@ -509,7 +511,7 @@ def resident_pcg(hat, sq, b_hat, n_iters):
     rc = hat.launch(lib, (sq_k, b_k, delta, r, p0, p1, ap, parts),
                     int(n_iters), blocks)
     build.check(rc, "resident_pcg")
-    resident_pcg.launches += 1
+    LAUNCHES["K13.resident_pcg"] += 1
     return hat.flat(delta)
 
 
@@ -524,7 +526,6 @@ def warp_resident_backend(op):
     return backend
 
 
-resident_pcg.launches = 0
 
 
 def supports(plan):

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import energies
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 from .pcg_update import pcg_update
 
@@ -240,6 +241,7 @@ def shapes(D, H, W):
             "cons": (D, H, W, 3), "params": (2,)}
 
 
+@kernel("K8.vol_linearize")
 def vol_linearize(x, ur, cons, params, cost_only=False, delta=None):
     """K8: (J^T F, diag(J^T J), cost) at x -- kernel on CUDA, plain on
     CPU.  cost_only skips J^T F and diag (returned as None); given delta,
@@ -267,11 +269,10 @@ def vol_linearize(x, ur, cons, params, cost_only=False, delta=None):
         build.ptr(delta), build.ptr(jtf), build.ptr(diag), build.ptr(parts),
         D, H, W, mode, build.stream())
     build.check(rc, "vol_linearize")
-    vol_linearize.launches += 1
+    LAUNCHES["K8.vol_linearize"] += 1
     return jtf, diag, torch.sum(parts)
 
 
-vol_linearize.launches = 0
 
 
 class VolOperator:

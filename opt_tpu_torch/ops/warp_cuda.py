@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import energies
+from ..runtime.trace import LAUNCHES, kernel
 from . import build
 from .pcg_update import pcg_update
 
@@ -213,6 +214,7 @@ def _shapes(H, W):
             "params": (2,)}
 
 
+@kernel("K1.warp_jtj_apply")
 def warp_jtj_apply(x, p, ur, cons, mask, params, ctc=None):
     """K1: (mask(J^T J p + ctc p), <p, Ap>) -- kernel on CUDA, plain on
     CPU."""
@@ -231,10 +233,11 @@ def warp_jtj_apply(x, p, ur, cons, mask, params, ctc=None):
         build.ptr(mask), build.ptr(params), build.ptr(ctc), build.ptr(ap),
         build.ptr(parts), H, W, build.stream())
     build.check(rc, "warp_jtj_apply")
-    warp_jtj_apply.launches += 1
+    LAUNCHES["K1.warp_jtj_apply"] += 1
     return ap, torch.sum(parts)
 
 
+@kernel("K3.warp_linearize")
 def warp_linearize(x, ur, cons, mask, params, cost_only=False, delta=None):
     """K3: (J^T F, diag(J^T J), masked cost) at x -- kernel on CUDA, plain
     on CPU.  cost_only skips J^T F and diag (returned as None); given
@@ -263,12 +266,10 @@ def warp_linearize(x, ur, cons, mask, params, cost_only=False, delta=None):
         build.ptr(params), build.ptr(delta), build.ptr(jtf), build.ptr(diag),
         build.ptr(parts), H, W, mode, build.stream())
     build.check(rc, "warp_linearize")
-    warp_linearize.launches += 1
+    LAUNCHES["K3.warp_linearize"] += 1
     return jtf, diag, torch.sum(parts)
 
 
-warp_jtj_apply.launches = 0
-warp_linearize.launches = 0
 
 
 class WarpOperator:

@@ -28,6 +28,7 @@ from __future__ import annotations
 import math
 
 from ..ops import stream3d_cuda, stream_cuda, vol_cuda, warp_cuda
+from ..runtime.trace import span
 from . import halo, stream_shard
 from .mesh import SlabLayout, shard_problem
 
@@ -104,14 +105,16 @@ def solve_sharded_auto(plan, inputs, mesh, engine="auto"):
     own solver loop on the picked engine's sharded operator.  Leaves
     plan.engine, plan.variant and the state (its unknowns gathered back
     into the global layout) readable, as the JAX package's sharded solves
-    do (stream_shard.py:822-824); returns the final cost."""
+    do (stream_shard.py:822-824); Plan.final_cost reads the final
+    cost."""
     if mesh.device != plan.device:
         raise ValueError(f"the mesh is on {mesh.device}, the plan on "
                          f"{plan.device}")
-    eng = pick_sharded_engine(plan, mesh, engine)
-    x, data = plan.bind(inputs)
-    layout = SlabLayout(plan.funcs.unknown_shapes, mesh)
-    op = _OPERATORS[eng](plan, shard_problem(mesh, data), layout)
+    with span("opt.bind"):
+        eng = pick_sharded_engine(plan, mesh, engine)
+        x, data = plan.bind(inputs)
+        layout = SlabLayout(plan.funcs.unknown_shapes, mesh)
+        op = _OPERATORS[eng](plan, shard_problem(mesh, data), layout)
     state = plan._full_solve_fn(layout.shard(x, plan.layout), op,
                                 plan.solver_params)
     for key in ("x", "ssq"):
@@ -120,4 +123,3 @@ def solve_sharded_auto(plan, inputs, mesh, engine="auto"):
     plan.engine, plan.variant = eng, getattr(op, "variant", None)
     plan._state = state
     plan._op = GlobalCost(op, layout, plan.layout)
-    return float(state["prev_cost"])

@@ -52,7 +52,7 @@ from ..solver.core import (
     SolverConfig,
     make_solver,
 )
-from .timing import KernelTimer
+from .trace import PhaseTable, span
 
 GN_KINDS = ("gaussNewtonGPU", "gauss_newton", "gaussNewton", "GN")
 LM_KINDS = ("LMGPU", "levenberg_marquardt", "levenbergMarquardt", "LM")
@@ -76,9 +76,10 @@ class OptState:
 
     device: where every tensor of this state's plans lives: "cuda[:i]"
     (the default, which raises where torch sees no CUDA device) or
-    "cpu".  collect_kernel_timing records the host time of each
-    phase (init, step_N, solve), synchronizing the device at its end, and
-    prints the reference's timing table when a solve finishes."""
+    "cpu".  collect_kernel_timing records the time of each phase (bind,
+    init, step_N, solve: runtime/trace.PhaseTable), on the card with CUDA
+    events and no synchronize inside the solve, and prints the reference's
+    timing table when a solve finishes."""
 
     def __init__(
         self,
@@ -200,7 +201,7 @@ class Plan:
         self._state = None
         self._op = None
         self._cleaned = False
-        self.timer = KernelTimer(enabled=state.collect_kernel_timing)
+        self.timer = PhaseTable(state.collect_kernel_timing, state.device)
         # (graph, slot, vertex count, index bytes) -> CSR incidence
         self._incidence_cache = {}
 
@@ -382,25 +383,21 @@ class Plan:
 
     def _bind_engine(self, engine, inputs):
         """Pick the engine, bind the inputs and build its operator."""
-        self.engine = self._pick_engine(engine)
-        x, data = self.bind(inputs)
-        self._op = self._operator(self.engine, data)
-        self.variant = getattr(self._op, "variant", None)
+        with span("opt.bind"):
+            self.engine = self._pick_engine(engine)
+            x, data = self.bind(inputs)
+            self._op = self._operator(self.engine, data)
+            self.variant = getattr(self._op, "variant", None)
         return x
-
-    def _sync(self):
-        if self.timer.enabled and self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # -- lifecycle --------------------------------------------------------------
 
     def init(self, inputs, engine="auto"):
         """Opt_ProblemInit: bind data, compute the initial cost."""
-        x = self._bind_engine(engine, inputs)
-        self._cleaned = False
-        with self.timer.event("init"):
+        with self.timer.on():
+            x = self._bind_engine(engine, inputs)
             self._state = self._init_fn(x, self._op, self.solver_params)
-            self._sync()
+        self._cleaned = False
         return self
 
     Init = init
@@ -414,9 +411,9 @@ class Plan:
         if n >= int(self.solver_params["nIterations"]) or bool(s["done"]):
             self._cleanup()
             return 0
-        with self.timer.event(f"step_{n}"):
+        self.timer.step = n
+        with self.timer.on():
             self._state = self._step_fn(s, self._op, self.solver_params)
-            self._sync()
         if self.state.verbosity > 1:
             print(f"--cost after step {n}: "
                   f"{float(self._state['prev_cost']):.16f}")
@@ -446,20 +443,17 @@ class Plan:
         in the global layout.
         A kernel error propagates: there is no fallback to another
         engine."""
-        if mesh is not None:
-            with self.timer.event("solve"):
+        with self.timer.on(), span("opt.solve"):
+            if mesh is not None:
                 solve_sharded_auto(self, inputs, mesh, engine)
-                self._sync()
-            self._cleaned = False
-            self._cleanup()
-            return self.final_cost()
-        x = self._bind_engine(engine, inputs)
-        with self.timer.event("solve"):
-            self._state = self._full_solve_fn(x, self._op, self.solver_params)
-            self._sync()
+            else:
+                x = self._bind_engine(engine, inputs)
+                self._state = self._full_solve_fn(x, self._op,
+                                                  self.solver_params)
+            cost = self.final_cost()
         self._cleaned = False
         self._cleanup()
-        return self.final_cost()
+        return cost
 
     Solve = solve
 
@@ -475,7 +469,8 @@ class Plan:
         """The cost the reference prints as 'final cost=' (prevCost,
         solverGPUGaussNewton.t:1903): cost after the last update."""
         assert self._state is not None
-        return float(self._state["prev_cost"])
+        with span("opt.read"):
+            return float(self._state["prev_cost"])
 
     @property
     def x(self):

@@ -34,6 +34,9 @@ one operator seam, an object with
 The plain engine's operator is compile/plan_fns.FuncsOperator; the CUDA
 engines' are ops/warp_cuda.WarpOperator and ops/stream_cuda.StreamOperator;
 a solve over a mesh runs the same loop on parallel/'s sharded operators.
+The loop's spans (runtime/trace.py): opt.init around the initial cost,
+opt.step around each outer step, and inside it opt.linearize, opt.pcg and
+opt.update.
 
 Every vector is one flat buffer over all unknowns (Layout gives the
 per-unknown views).  Scalars (alpha, beta, <r, z>) stay 0-d tensors on the
@@ -50,6 +53,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..runtime.trace import span
 
 SOLVER_PARAMETER_DEFAULTS = {
     "residual_reset_period": 10,
@@ -159,9 +164,11 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
 
     def init_fn(x, op, sp):
         dev = x.device
+        with span("opt.init"):
+            cost = op.cost(x)
         return {
             "x": x,
-            "prev_cost": op.cost(x),
+            "prev_cost": cost,
             "radius": torch.tensor(sp["trust_region_radius"], dtype=dtype,
                                    device=dev),
             "decrease_f": torch.tensor(sp["radius_decrease_factor"],
@@ -243,10 +250,10 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
                 Q0 = q
         return delta
 
-    def step_fn(state, op, sp):
-        """One nonlinear (outer) iteration; solverGPUGaussNewton.t:1913-2349."""
-        x = state["x"]
-        jtf, diag = op.outer(x)
+    def linearize(state, op, sp):
+        """PCGInit1 at x (:521-598), and LM's CtC and its preconditioner:
+        (pre, b, ctc, ssq)."""
+        jtf, diag = op.outer(state["x"])
         r = op.mask(-jtf)  # residuum = -J^T F (PCGInit1, :530-560)
         diag = op.mask(diag)
         if use_preconditioner:
@@ -273,18 +280,22 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
                 max=float(sp["max_lm_diagonal"]) * inv_s_sq / radius)
             # true preconditioner: 1/(CtC + radius*CtC_raw) = 1/(CtC + diag)
             pre = op.mask(_safe_div(torch.ones_like(ctc), ctc + diag))
-        b = r  # pd.b = residuum (:1087)
+        return pre, r, ctc, ssq  # pd.b = residuum (:1087)
 
+    def pcg(op, pre, b, ctc, sp):
+        """delta from the pcg_backend or the PCG loop here."""
         backend = op.pcg_backend
         if backend is not None:
             # the hat space (opt_tpu core :482-513); pre is mask-zeroed, so
             # sq carries the exclusion
             sq = torch.sqrt(pre)
             scs = sq * sq * ctc if lm else None
-            delta = sq * backend(sq, scs, sq * b, sp)
-        else:
-            delta = pcg_loop(op, pre, r, b, ctc, sp)
+            return sq * backend(sq, scs, sq * b, sp)
+        return pcg_loop(op, pre, b, b, ctc, sp)
 
+    def update(state, op, sp, delta, ssq):
+        """The new x and its cost; LM's accept or reject."""
+        x = state["x"]
         x_new = x + op.mask(delta)
         new_cost = op.cost(x_new)
         if not lm:
@@ -296,6 +307,7 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
             }
 
         # ---- LM trust-region accept / reject (:2247-2292) ----
+        radius = state["radius"]
         prev = state["prev_cost"]
         model_cost_change = prev - op.model_cost(delta)
         cost_change = prev - new_cost
@@ -328,6 +340,16 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
             "done": state["done"] | torch.where(accept, ftol_reached,
                                                 radius_too_small),
         }
+
+    def step_fn(state, op, sp):
+        """One nonlinear (outer) iteration; solverGPUGaussNewton.t:1913-2349."""
+        with span("opt.step"):
+            with span("opt.linearize"):
+                pre, b, ctc, ssq = linearize(state, op, sp)
+            with span("opt.pcg"):
+                delta = pcg(op, pre, b, ctc, sp)
+            with span("opt.update"):
+                return update(state, op, sp, delta, ssq)
 
     def cost_fn(state, op):
         return op.cost(state["x"])

@@ -14,8 +14,12 @@ import chip_smoke
 from opt_tpu_torch.ops import pcg_update as k2
 from opt_tpu_torch.ops import graph_cuda, stream3d_cuda, stream_cuda
 from opt_tpu_torch.ops import vol_cuda, warp_cuda
+from opt_tpu_torch.runtime.trace import LAUNCHES
 
 pytestmark = pytest.mark.cuda
+
+# K11's two kernels, each counted on its own
+K11_PASSES = ("K11.graph_hat_edge", "K11.graph_hat_vertex")
 
 torch.set_num_threads(1)
 
@@ -60,9 +64,9 @@ SIZES = [(37, 23), (512, 512)]
 @pytest.mark.parametrize("W,H", SIZES)
 def test_jtj_apply_kernel_matches_plain(dev, W, H):
     x, ur, cons, mask, params, t = _operands(W, H, dev)
-    n = warp_cuda.warp_jtj_apply.launches
+    n = LAUNCHES["K1.warp_jtj_apply"]
     got = warp_cuda.warp_jtj_apply(x, t["p"], ur, cons, mask, params)
-    assert warp_cuda.warp_jtj_apply.launches == n + 1
+    assert LAUNCHES["K1.warp_jtj_apply"] == n + 1
     _close(got, warp_cuda.warp_jtj_apply_plain(x, t["p"], ur, cons, mask,
                                                params))
 
@@ -106,9 +110,9 @@ def _k1_partials(x, p, ur, cons, mask, params, ctc):
 def test_jtj_apply_march_matches_plain_and_repeats(dev, W, H, lm):
     x, ur, cons, mask, params, t = _march_operands(W, H, dev)
     args = (x, t["p"], ur, cons, mask, params, t["ctc"] if lm else None)
-    n = warp_cuda.warp_jtj_apply.launches
+    n = LAUNCHES["K1.warp_jtj_apply"]
     got = warp_cuda.warp_jtj_apply(*args)
-    assert warp_cuda.warp_jtj_apply.launches == n + 1
+    assert LAUNCHES["K1.warp_jtj_apply"] == n + 1
     _close(got, warp_cuda.warp_jtj_apply_plain(*args))
     # every block writes its one partial; two calls match bit for bit
     a, b = _k1_partials(*args), _k1_partials(*args)
@@ -191,12 +195,12 @@ def test_hat_apply_kernel_matches_plain(dev, W, H, lm):
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     scs = t["scs"] if lm else None
     args = (x, ur, cons, mask, params, t["sq"], scs, t["r"])
-    n = stream_cuda.warp_hat_apply.launches
+    n = LAUNCHES["K4.warp_hat_apply"]
     _close(stream_cuda.warp_hat_apply(*args, t["p"], beta),
            stream_cuda.warp_hat_apply_plain(*args, t["p"], beta))
     _close(stream_cuda.warp_hat_apply(*args),
            stream_cuda.warp_hat_apply_plain(*args))
-    assert stream_cuda.warp_hat_apply.launches == n + 2
+    assert LAUNCHES["K4.warp_hat_apply"] == n + 2
 
 
 @pytest.mark.parametrize("lm", [False, True])
@@ -291,9 +295,9 @@ def test_vol_linearize_kernel_matches_plain(dev, mode):
     x, ur, cons, params, t = _vol_operands(dev)
     kw = {"cost_only": {"cost_only": True},
           "model_cost": {"delta": t["delta"]}}.get(mode, {})
-    n = vol_cuda.vol_linearize.launches
+    n = LAUNCHES["K8.vol_linearize"]
     got = vol_cuda.vol_linearize(x, ur, cons, params, **kw)
-    assert vol_cuda.vol_linearize.launches == n + 1
+    assert LAUNCHES["K8.vol_linearize"] == n + 1
     _close(got, vol_cuda.vol_linearize_plain(x, ur, cons, params, **kw))
 
 
@@ -304,9 +308,9 @@ def test_vol_hat_apply_kernel_matches_plain(dev, lm, prev):
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     args = (x, ur, cons, params, t["sq"], t["scs"] if lm else None, t["r"])
     extra = (t["p"], beta) if prev else ()
-    n = stream3d_cuda.vol_hat_apply.launches
+    n = LAUNCHES["K6.vol_hat_apply"]
     got = stream3d_cuda.vol_hat_apply(*args, *extra)
-    assert stream3d_cuda.vol_hat_apply.launches == n + 1
+    assert LAUNCHES["K6.vol_hat_apply"] == n + 1
     assert (got[0] is t["r"]) == (not prev)
     _close(got, stream3d_cuda.vol_hat_apply_plain(*args, *extra))
 
@@ -388,12 +392,12 @@ def test_stream3d_launch_failure_raises_with_no_fallback(dev):
               "UrShape": rng.randn(*shape).astype(np.float32),
               "Constraints": rng.randn(*shape).astype(np.float32),
               "w_fitSqrt": 1.0, "w_regSqrt": 1.0}
-    n = vol_cuda.vol_linearize.launches
+    n = LAUNCHES["K8.vol_linearize"]
     with pytest.raises(RuntimeError,
                        match="vol_pipelined_sweep: CUDA error"):
         plan.solve(inputs, engine="stream3d")
     assert plan.engine == "stream3d"
-    assert vol_cuda.vol_linearize.launches > n
+    assert LAUNCHES["K8.vol_linearize"] > n
     x, data = plan.bind(inputs)
     op = plan._operator("stream3d", data)
     for kw in ({}, {"cost_only": True}):
@@ -463,9 +467,9 @@ def test_vol_hat_apply_tile_core_matches_plain_and_repeats(dev, shape, lm,
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     args = (x, ur, cons, params, t["sq"], t["scs"] if lm else None, t["r"])
     extra = (t["p"], beta) if prev else ()
-    n = stream3d_cuda.vol_hat_apply.launches
+    n = LAUNCHES["K6.vol_hat_apply"]
     got = stream3d_cuda.vol_hat_apply(*args, *extra)
-    assert stream3d_cuda.vol_hat_apply.launches == n + 1
+    assert LAUNCHES["K6.vol_hat_apply"] == n + 1
     _close(got, stream3d_cuda.vol_hat_apply_plain(*args, *extra))
     # two calls: the same outputs and dot partials, bit for bit
     a = _k6_partials(*args, *(extra or (None, None)))
@@ -516,14 +520,14 @@ def test_vol_tile_kernels_refuse_misshaped_calls(dev):
 
     x, ur, cons, params, t = chip_smoke.volume_kernel_operands(
         torch, 33, 9, 3, dev, seed=7)
-    n = stream3d_cuda.vol_hat_apply.launches
+    n = LAUNCHES["K6.vol_hat_apply"]
     with pytest.raises(ValueError, match="vol_hat_apply"):
         stream3d_cuda.vol_hat_apply(x, ur, cons, params, t["sq"][:-6], None,
                                     t["r"])
     with pytest.raises(ValueError, match="p_prev and beta"):
         stream3d_cuda.vol_hat_apply(x, ur, cons, params, t["sq"], None,
                                     t["r"], t["p"])
-    assert stream3d_cuda.vol_hat_apply.launches == n
+    assert LAUNCHES["K6.vol_hat_apply"] == n
     xs, urs, cs, ps, ts, g = chip_smoke.vol_slab_operands(
         torch, 33, 9, 6, 3, dev, seed=10)
     with pytest.raises(ValueError, match="vol_slab_apply"):
@@ -541,8 +545,8 @@ def test_graph_gather_and_scatter_match_plain(dev, dtype):
     v = torch.as_tensor(rng.randn(n, 5), device=dev).to(dtype)
     x = torch.as_tensor(rng.randn(len(v0), 5), device=dev).to(dtype)
     idx = torch.as_tensor(np.stack([v0, v1]), device=dev)
-    k9 = graph_cuda.graph_gather.launches
-    k10 = graph_cuda.graph_scatter.launches
+    k9 = LAUNCHES["K9.graph_gather"]
+    k10 = LAUNCHES["K10.graph_scatter"]
     got = graph_cuda.graph_gather(v, idx)
     assert got.shape == (2, len(v0), 5) and got.dtype == dtype
     # a gather moves values: exact
@@ -552,8 +556,8 @@ def test_graph_gather_and_scatter_match_plain(dev, dtype):
     out = graph_cuda.graph_scatter(x, idx[1], order, rowptr)
     _close([out], [graph_cuda.graph_scatter_plain(x, idx[1], n)])
     assert torch.equal(out, graph_cuda.graph_scatter(x, idx[1], order, rowptr))
-    assert graph_cuda.graph_gather.launches == k9 + 1
-    assert graph_cuda.graph_scatter.launches == k10 + 2
+    assert LAUNCHES["K9.graph_gather"] == k9 + 1
+    assert LAUNCHES["K10.graph_scatter"] == k10 + 2
 
 
 # K9 and K10 at every channel count they instantiate (1-8) and one the
@@ -573,8 +577,8 @@ def test_graph_kernels_exact_at_every_width(dev, dtype, C):
     for off in (0, 1):
         v = flat_v[off:off + n * C].view(n, C)
         x = flat_x[off:off + E * C].view(E, C)
-        k9 = graph_cuda.graph_gather.launches
-        k10 = graph_cuda.graph_scatter.launches
+        k9 = LAUNCHES["K9.graph_gather"]
+        k10 = LAUNCHES["K10.graph_scatter"]
         want = graph_cuda.graph_gather_plain(v, idx)
         got = graph_cuda.graph_gather(v, idx)
         assert got.shape == (3, E, C) and got.dtype == dtype
@@ -585,8 +589,8 @@ def test_graph_kernels_exact_at_every_width(dev, dtype, C):
         assert torch.equal(out, graph_cuda.graph_scatter(x, idx[1], order,
                                                          rowptr))
         torch.cuda.synchronize()
-        assert graph_cuda.graph_gather.launches == k9 + 1
-        assert graph_cuda.graph_scatter.launches == k10 + 2
+        assert LAUNCHES["K9.graph_gather"] == k9 + 1
+        assert LAUNCHES["K10.graph_scatter"] == k10 + 2
 
 
 def test_graph_kernels_refuse_bad_operands(dev):
@@ -597,8 +601,8 @@ def test_graph_kernels_refuse_bad_operands(dev):
     idx = torch.as_tensor(v1, device=dev)
     order, rowptr = (torch.as_tensor(a, device=dev)
                      for a in graph_cuda.incidence(v1, n))
-    k9 = graph_cuda.graph_gather.launches
-    k10 = graph_cuda.graph_scatter.launches
+    k9 = LAUNCHES["K9.graph_gather"]
+    k10 = LAUNCHES["K10.graph_scatter"]
     with pytest.raises(ValueError, match="float32 or float64"):
         graph_cuda.graph_gather(v.half(), idx)
     with pytest.raises(ValueError, match="int64"):
@@ -620,8 +624,8 @@ def test_graph_kernels_refuse_bad_operands(dev):
         graph_cuda.graph_scatter(x, idx, order, rowptr.cpu())
     with pytest.raises(ValueError, match="shape"):
         graph_cuda.graph_scatter(x[:-1], idx, order, rowptr)
-    assert graph_cuda.graph_gather.launches == k9
-    assert graph_cuda.graph_scatter.launches == k10
+    assert LAUNCHES["K9.graph_gather"] == k9
+    assert LAUNCHES["K10.graph_scatter"] == k10
 
 
 def irregular_graph_inputs(seed=1):
@@ -693,9 +697,9 @@ def test_graph_hat_edge_kernel_matches_plain(dev, case, prev):
     tab, t = _hat_tables(dev, case)
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     extra = (t["p"], beta) if prev else ()
-    n = graph_cuda.graph_hat_edge.launches
+    n = LAUNCHES["K11.graph_hat_edge"]
     got = graph_cuda.graph_hat_edge(tab, t["sq"], t["r"], *extra)
-    assert graph_cuda.graph_hat_edge.launches == n + 1
+    assert LAUNCHES["K11.graph_hat_edge"] == n + 1
     want = graph_cuda.graph_hat_edge_plain(tab, t["sq"], t["r"], *extra)
     for rows, wrows in zip(got, want):
         assert [r.shape for r in rows] == [w.shape for w in wrows]
@@ -713,9 +717,9 @@ def test_graph_hat_vertex_kernel_matches_plain(dev, case, lm, prev):
     extra = (t["p"], beta) if prev else ()
     c = graph_cuda.graph_hat_edge_plain(tab, t["sq"], t["r"], *extra)
     args = (tab, c, t["sq"], t["scs"] if lm else None, t["r"])
-    n = graph_cuda.graph_hat_vertex.launches
+    n = LAUNCHES["K11.graph_hat_vertex"]
     got = [x.clone() for x in graph_cuda.graph_hat_vertex(*args, *extra)]
-    assert graph_cuda.graph_hat_vertex.launches == n + 1
+    assert LAUNCHES["K11.graph_hat_vertex"] == n + 1
     _close(got, graph_cuda.graph_hat_vertex_plain(*args, *extra))
 
 
@@ -726,9 +730,9 @@ def test_graph_hat_apply_kernel_matches_plain(dev, lm, prev):
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     args = (tab, t["sq"], t["scs"] if lm else None, t["r"])
     extra = (t["p"], beta) if prev else ()
-    n = graph_cuda.graph_hat_apply.launches
+    n = [LAUNCHES[k] for k in K11_PASSES]
     got = graph_cuda.graph_hat_apply(*args, *extra)
-    assert graph_cuda.graph_hat_apply.launches == n + 1
+    assert [LAUNCHES[k] for k in K11_PASSES] == [c + 1 for c in n]
     assert (got[0] is t["r"]) == (not prev)
     _close(got, graph_cuda.graph_hat_apply_plain(*args, *extra))
     # no atomics: the same bits on a second call, in the same scratch
@@ -854,12 +858,12 @@ def test_graph_vertex_pass_failure_raises_through_solve(dev, monkeypatch):
 
     monkeypatch.setattr(graph_cuda.HatTables, "set_partials", no_vertices)
     plan = _arap_plan("gaussNewtonGPU", 19, n_outer=1, n_linear=2)
-    n = graph_cuda.graph_hat_apply.launches
+    n = [LAUNCHES[k] for k in K11_PASSES]
     with pytest.raises(RuntimeError,
                        match="graph_hat_apply: CUDA error 9 "):
         plan.solve(chip_smoke.arap_inputs(19))
     assert plan.engine == "graph"
-    assert graph_cuda.graph_hat_apply.launches == n
+    assert [LAUNCHES[k] for k in K11_PASSES] == n
     torch.cuda.synchronize()
 
 
@@ -887,9 +891,9 @@ def test_poisson_cg_kernel_matches_plain(dev, C, n_iters):
     from opt_tpu_torch.ops import poisson_cuda
 
     b, keep = _poisson_operands(dev, C)
-    n = poisson_cuda.poisson_cg.launches
+    n = LAUNCHES["K12.poisson_cg"]
     got = poisson_cuda.poisson_cg(b, keep, n_iters)
-    assert poisson_cuda.poisson_cg.launches == n + 1
+    assert LAUNCHES["K12.poisson_cg"] == n + 1
     _close([got], [poisson_cuda.poisson_cg_plain(b, keep, n_iters)])
     assert torch.isfinite(got).all()
     if C == 4:
@@ -905,9 +909,9 @@ def test_resident_pcg_kernel_matches_plain(dev, energy, n_iters):
     hat, sq, b_hat = chip_smoke.resident_operands(torch, energy,
                                                   *chip_smoke.SMALL_POISSON,
                                                   dev)
-    n = stream_cuda.resident_pcg.launches
+    n = LAUNCHES["K13.resident_pcg"]
     got = stream_cuda.resident_pcg(hat, sq, b_hat, n_iters)
-    assert stream_cuda.resident_pcg.launches == n + 1
+    assert LAUNCHES["K13.resident_pcg"] == n + 1
     _close([got], [stream_cuda.resident_pcg_plain(hat, sq, b_hat, n_iters)])
     assert not got[sq == 0].any()
     assert torch.equal(got, stream_cuda.resident_pcg(hat, sq, b_hat,
@@ -959,17 +963,16 @@ def test_cuda_engine_gn_runs_one_k13_launch_an_outer_step(dev):
     cost within COST_RTOL of the JAX package's CPU value."""
     import opt_tpu_torch
     from opt_tpu_torch import energies
-    from opt_tpu_torch.ops import pcg_update
 
     plan = chip_smoke.new_plan(opt_tpu_torch, energies, "gaussNewtonGPU",
                                512, 8, 400)
     inputs = chip_smoke.warp_inputs(512, 512)
-    kernels = (stream_cuda.resident_pcg, warp_cuda.warp_linearize,
-               warp_cuda.warp_jtj_apply, pcg_update.pcg_update)
-    before = [k.launches for k in kernels]
+    kernels = ("K13.resident_pcg", "K3.warp_linearize", "K1.warp_jtj_apply",
+               "K2.pcg_update")
+    before = [LAUNCHES[k] for k in kernels]
     cost = plan.solve(inputs)
     assert plan.engine == "cuda"
-    assert [k.launches - b for k, b in zip(kernels, before)] == [8, 17, 0, 0]
+    assert [LAUNCHES[k] - b for k, b in zip(kernels, before)] == [8, 17, 0, 0]
     assert cost == pytest.approx(chip_smoke.JAX_CPU_FINAL_COST,
                                  rel=chip_smoke.COST_RTOL)
 
@@ -983,13 +986,12 @@ def test_resident_launch_refused_raises_through_solve(dev, monkeypatch):
     lib = build.library()
     monkeypatch.setattr(build, "library", lambda: _ProxyLibrary(lib))
     plan = _mesh_plan("image_warping", "gaussNewtonGPU", (64, 48), 1, 2)
-    counts = [k.launches for k in (stream_cuda.resident_pcg,
-                                   warp_cuda.warp_jtj_apply)]
+    counted = ("K13.resident_pcg", "K1.warp_jtj_apply")
+    counts = [LAUNCHES[k] for k in counted]
     with pytest.raises(RuntimeError, match="resident_pcg: CUDA error"):
         plan.solve(chip_smoke.warp_inputs(64, 48, seed=6), engine="cuda")
     assert plan.engine == "cuda"
-    assert counts == [k.launches for k in (stream_cuda.resident_pcg,
-                                           warp_cuda.warp_jtj_apply)]
+    assert counts == [LAUNCHES[k] for k in counted]
     torch.cuda.synchronize()
 
 
@@ -1001,9 +1003,9 @@ def test_stencil_kernel_matches_plain(dev, shape, tile):
     img = torch.as_tensor(np.random.RandomState(11).randn(*shape).astype(
         np.float32), device=dev)
     for offsets, weights in chip_smoke.STENCIL_TAPS.values():
-        n = halo_stencil.stencil_apply.launches
+        n = LAUNCHES["K14.stencil_apply"]
         got = halo_stencil.stencil_apply(img, offsets, weights, tile)
-        assert halo_stencil.stencil_apply.launches == n + 1
+        assert LAUNCHES["K14.stencil_apply"] == n + 1
         _close([got], [halo_stencil.stencil_apply_plain(img, offsets,
                                                         weights)])
 
@@ -1108,11 +1110,11 @@ def test_warp_slab_kernels_match_plain(dev):
             ((x, ur, cons, mask, t["sq"], t["p"], t["delta"]), g)
             if s is None else
             _alone((x, ur, cons, mask, t["sq"], t["p"], t["delta"]), s, g))
-        n0 = sc.warp_slab_apply.launches
+        n0 = LAUNCHES["K15.warp_slab_apply"]
         _close([sc.warp_slab_apply(xs, urs, cs, ms, params, sq, p, gs)],
                [sc.warp_slab_apply_plain(xs, urs, cs, ms, params, sq, p,
                                          gs)])
-        assert sc.warp_slab_apply.launches == n0 + 1
+        assert LAUNCHES["K15.warp_slab_apply"] == n0 + 1
         for kw in ({}, {"cost_only": True}, {"delta": d}):
             _close(sc.warp_slab_linearize(xs, urs, cs, ms, params, gs, **kw),
                    sc.warp_slab_linearize_plain(xs, urs, cs, ms, params, gs,
@@ -1152,22 +1154,22 @@ def test_warp_march_kernels_refuse_misshaped_calls(dev):
     from opt_tpu_torch.ops import slab_cuda as sc
 
     x, ur, cons, mask, params, t = _march_operands(33, 9, dev)
-    n = warp_cuda.warp_jtj_apply.launches
+    n = LAUNCHES["K1.warp_jtj_apply"]
     with pytest.raises(ValueError, match="warp_jtj_apply"):
         warp_cuda.warp_jtj_apply(x, t["p"][:-3], ur, cons, mask, params)
     with pytest.raises(ValueError, match="warp_jtj_apply"):
         warp_cuda.warp_jtj_apply(x, t["p"], ur, cons, mask, params,
                                  t["ctc"][:-1])
-    assert warp_cuda.warp_jtj_apply.launches == n
+    assert LAUNCHES["K1.warp_jtj_apply"] == n
     x, ur, cons, mask, params, t, g = _warp_slabs(dev)
-    n = sc.warp_slab_apply.launches
+    n = LAUNCHES["K15.warp_slab_apply"]
     with pytest.raises(ValueError, match="warp_slab_apply"):
         sc.warp_slab_apply(x, ur, cons, mask, params, t["sq"], t["p"],
                            (g[0], 1, g[2], g[3]))
     with pytest.raises(ValueError, match="warp_slab_apply"):
         sc.warp_slab_apply(x, ur, cons, mask, params, t["sq"][:, :-1],
                            t["p"], g)
-    assert sc.warp_slab_apply.launches == n
+    assert LAUNCHES["K15.warp_slab_apply"] == n
 
 
 class _ZeroWidthLibrary:
@@ -1198,16 +1200,16 @@ def test_warp_march_launch_failure_raises_through_solve(dev, monkeypatch):
     monkeypatch.setattr(build, "library", lambda: _ZeroWidthLibrary(lib))
     inputs = chip_smoke.warp_inputs(64, 48, seed=6)
     lm = _mesh_plan("image_warping", "LMGPU", (64, 48), 1, 2)
-    n = warp_cuda.warp_jtj_apply.launches
+    n = LAUNCHES["K1.warp_jtj_apply"]
     with pytest.raises(RuntimeError, match="warp_jtj_apply: CUDA error"):
         lm.solve(inputs, engine="cuda")
     assert lm.engine == "cuda"
-    assert warp_cuda.warp_jtj_apply.launches == n
+    assert LAUNCHES["K1.warp_jtj_apply"] == n
     plan = _mesh_plan("image_warping", "gaussNewtonGPU", (64, 48), 1, 2)
-    n = sc.warp_slab_apply.launches
+    n = LAUNCHES["K15.warp_slab_apply"]
     with pytest.raises(RuntimeError, match="warp_slab_apply: CUDA error"):
         plan.solve(inputs, engine="stream", mesh=make_mesh(4, device="cuda"))
-    assert sc.warp_slab_apply.launches == n
+    assert LAUNCHES["K15.warp_slab_apply"] == n
     torch.cuda.synchronize()
 
 
@@ -1249,10 +1251,10 @@ def test_vol_slab_kernels_match_plain(dev):
         (xs, urs, cs, sq, p, d), gs = (
             ((x, ur, cons, t["sq"], t["p"], t["delta"]), g) if s is None
             else _alone((x, ur, cons, t["sq"], t["p"], t["delta"]), s, g))
-        n0 = sc.vol_slab_apply.launches
+        n0 = LAUNCHES["K16.vol_slab_apply"]
         _close([sc.vol_slab_apply(xs, urs, cs, params, sq, p, gs)],
                [sc.vol_slab_apply_plain(xs, urs, cs, params, sq, p, gs)])
-        assert sc.vol_slab_apply.launches == n0 + 1
+        assert LAUNCHES["K16.vol_slab_apply"] == n0 + 1
         for kw in ({}, {"cost_only": True}, {"delta": d}):
             _close(sc.vol_slab_linearize(xs, urs, cs, params, gs, **kw),
                    sc.vol_slab_linearize_plain(xs, urs, cs, params, gs,
@@ -1390,11 +1392,13 @@ def _linearize_case(dev, kernel, layout, mode):
 def test_linearize_tile_cores_match_plain_and_repeat(dev, kernel, layout,
                                                      mode):
     kern, plain = _linearize_case(dev, kernel, layout, mode)
-    counted = warp_cuda.warp_linearize if kernel == "K3" else (
-        vol_cuda.vol_linearize)
-    n = counted.launches
+    counted = {("K3", "whole"): "K3.warp_linearize",
+               ("K3", "slabs"): "K3.warp_slab_linearize",
+               ("K8", "whole"): "K8.vol_linearize",
+               ("K8", "slabs"): "K8.vol_slab_linearize"}[kernel, layout]
+    n = LAUNCHES[counted]
     got = kern()
-    assert counted.launches == n + 1
+    assert LAUNCHES[counted] == n + 1
     _close(got, plain())
     assert _same(got, kern())
 
@@ -1476,20 +1480,20 @@ def test_linearize_refuses_an_empty_grid(dev):
         x = torch.zeros(3 * H * W, device=dev)
         ur = torch.zeros(H, W, 2, device=dev)
         mask = torch.zeros(H, W, 1, device=dev)
-        n = warp_cuda.warp_linearize.launches
+        n = LAUNCHES["K3.warp_linearize"]
         for kw in ({}, {"cost_only": True}, {"delta": x}):
             with pytest.raises(RuntimeError,
                                match="warp_linearize: CUDA error"):
                 warp_cuda.warp_linearize(x, ur, ur, mask, params, **kw)
-        assert warp_cuda.warp_linearize.launches == n
+        assert LAUNCHES["K3.warp_linearize"] == n
         xv = torch.zeros(6 * 3 * H * W, device=dev)
         urv = torch.zeros(3, H, W, 3, device=dev)
-        n = vol_cuda.vol_linearize.launches
+        n = LAUNCHES["K8.vol_linearize"]
         for kw in ({}, {"cost_only": True}, {"delta": xv}):
             with pytest.raises(RuntimeError,
                                match="vol_linearize: CUDA error"):
                 vol_cuda.vol_linearize(xv, urv, urv, params, **kw)
-        assert vol_cuda.vol_linearize.launches == n
+        assert LAUNCHES["K8.vol_linearize"] == n
     xv = torch.zeros(0, device=dev)
     urv = torch.zeros(0, 4, 4, 3, device=dev)
     with pytest.raises(RuntimeError, match="vol_linearize: CUDA error"):

@@ -12,6 +12,7 @@ import torch
 
 from opt_tpu.ops.pcg_pallas import fused_pcg_update
 from opt_tpu_torch.ops.pcg_update import pcg_update, pcg_update_plain
+from opt_tpu_torch.runtime.trace import LAUNCHES
 from tests.test_torch_evaluate import assert_close
 
 torch.set_num_threads(1)
@@ -52,12 +53,12 @@ def test_plain_matches_pallas_interpret(uses_lambda, n):
 def test_wrapper_on_cpu_is_the_plain_version():
     alpha, v = operands(300, seed=1)
     t = {k: torch.as_tensor(a) for k, a in v.items()}
-    before = pcg_update.launches
+    before = LAUNCHES["K2.pcg_update"]
     got = pcg_update(torch.tensor(alpha), t["p"], t["ap"], t["delta"],
                      t["r"], t["pre"], t["b"])
     want = pcg_update_plain(torch.tensor(alpha), t["p"], t["ap"],
                             t["delta"], t["r"], t["pre"], t["b"])
-    assert pcg_update.launches == before
+    assert LAUNCHES["K2.pcg_update"] == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

@@ -22,6 +22,7 @@ from opt_tpu import energies as jax_energies
 from opt_tpu.ops.poisson_pallas import PoissonPallasSolver, poisson_cg_vmem
 from opt_tpu_torch import energies
 from opt_tpu_torch.ops import poisson_cuda
+from opt_tpu_torch.runtime.trace import LAUNCHES
 from tests.test_poisson_pallas import make_inputs
 from tests.test_torch_evaluate import assert_close
 
@@ -150,9 +151,9 @@ def pallas_case(request):
 
 def test_solver_matches_poisson_pallas_solver(pallas_case):
     _, inputs, tplan, n_lin, want = pallas_case
-    launches = poisson_cuda.poisson_cg.launches
+    launches = LAUNCHES["K12.poisson_cg"]
     got = poisson_cuda.PoissonCudaSolver(tplan).solve(inputs, n_lin)
-    assert poisson_cuda.poisson_cg.launches == launches  # plain on CPU
+    assert LAUNCHES["K12.poisson_cg"] == launches  # plain on CPU
     assert got["final_cost"] == pytest.approx(want["final_cost"], rel=RTOL)
     assert_close(got["x"]["X"].numpy(), np.asarray(want["x"]["X"]), RTOL)
     # the excluded pixels keep their value

@@ -22,6 +22,7 @@ import chip_smoke
 import opt_tpu_torch
 from opt_tpu_torch import energies
 from opt_tpu_torch.ops import poisson_cuda, stream_cuda, warp_cuda
+from opt_tpu_torch.runtime.trace import LAUNCHES
 from tests.test_torch_evaluate import assert_close
 from tests.test_torch_lm import assert_solve_matches, jax_solve, make_plans
 from tests.test_torch_poisson import _jax_cg
@@ -82,10 +83,10 @@ def test_cuda_engine_gn_on_k13_matches_jax(jax_gn):
     inputs, want = jax_gn
     _, tplan = make_plans("image_warping", "gaussNewtonGPU", W, H, N_OUTER,
                           N_LINEAR)
-    launches = stream_cuda.resident_pcg.launches
+    launches = LAUNCHES["K13.resident_pcg"]
     assert_solve_matches(tplan, inputs, "cuda", want)
     assert tplan._op.pcg_backend is not None
-    assert stream_cuda.resident_pcg.launches == launches  # plain on CPU
+    assert LAUNCHES["K13.resident_pcg"] == launches  # plain on CPU
     excl = inputs["Mask"][..., 0] != 0
     for n, arr in tplan.unknowns().items():
         np.testing.assert_array_equal(arr[excl], inputs[n][excl], err_msg=n)

@@ -111,8 +111,9 @@ def test_bad_solver_settings_raise():
 
 
 def test_double_precision_and_phase_timing(capsys):
-    """double_precision runs the plain engine in float64; the phase timer
-    prints the reference's TIMING line when the stepped solve ends."""
+    """double_precision runs the plain engine in float64; the phase table
+    prints the reference's TIMING line, its bind row first, when the
+    stepped solve ends."""
     inputs = warp_inputs(8, 6, seed=3)
     costs = {}
     for dp in (False, True):
@@ -133,7 +134,7 @@ def test_double_precision_and_phase_timing(capsys):
         costs[dp] = plan.final_cost()
     assert costs[True] == pytest.approx(costs[False], rel=1e-4)
     out = capsys.readouterr().out
-    assert "TIMING init=" in out and "step_0=" in out
+    assert "TIMING bind=" in out and " init=" in out and "step_0=" in out
 
 
 def test_new_state_defaults_to_the_card():

@@ -16,6 +16,7 @@ import opt_tpu_torch
 from opt_tpu.ops import stream_solver as ssv
 from opt_tpu_torch import energies
 from opt_tpu_torch.ops import stream_cuda
+from opt_tpu_torch.runtime.trace import LAUNCHES
 from tests.test_stream_solver import _poisson_inputs, _warp_inputs
 from tests.test_torch_lm import make_plans
 
@@ -40,9 +41,9 @@ def test_stream_solver_matches_jax(jax_stream):
     name, inputs, want = jax_stream
     _, tplan = make_plans(name, "gaussNewtonGPU", W, H, 3, 15)
     assert stream_cuda.supports(tplan)
-    launches = stream_cuda.resident_pcg.launches
+    launches = LAUNCHES["K13.resident_pcg"]
     got = stream_cuda.StreamSolver(tplan).solve(inputs)
-    assert stream_cuda.resident_pcg.launches == launches  # plain on CPU
+    assert LAUNCHES["K13.resident_pcg"] == launches  # plain on CPU
     assert got["final_cost"] == pytest.approx(want["final_cost"], rel=1e-4)
     for n, arr in got["x"].items():
         np.testing.assert_allclose(arr.numpy(), np.asarray(want["x"][n]),

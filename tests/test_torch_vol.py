@@ -18,6 +18,7 @@ import chip_smoke
 import opt_tpu_torch
 from opt_tpu_torch import energies
 from opt_tpu_torch.ops import stream3d_cuda, vol_cuda
+from opt_tpu_torch.runtime.trace import LAUNCHES
 from tests.test_torch_evaluate import assert_close, plans
 from tests.test_torch_plan_fns import pack
 
@@ -178,9 +179,9 @@ def test_operator_on_cpu_runs_the_plain_versions(case):
     """The kernel wrappers take the plain path only because the tensors
     lie on the CPU; nothing counts as a launch."""
     op, x, vecs, ref = case
-    counts = lambda: (vol_cuda.vol_linearize.launches,
-                      stream3d_cuda.vol_hat_apply.launches,
-                      stream3d_cuda.vol_pipelined_sweep.launches)
+    counts = lambda: (LAUNCHES["K8.vol_linearize"],
+                      LAUNCHES["K6.vol_hat_apply"],
+                      LAUNCHES["K7.vol_pipelined_sweep"])
     before = counts()
     jtf, diag = op.outer(x)
     ap, _ = op.apply(vecs["p"])

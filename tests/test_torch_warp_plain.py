@@ -12,6 +12,7 @@ import torch
 
 import chip_smoke
 from opt_tpu_torch.ops import warp_cuda
+from opt_tpu_torch.runtime.trace import LAUNCHES
 from tests.test_solver_dense import warp_inputs
 from tests.test_torch_evaluate import assert_close, plans
 from tests.test_torch_plan_fns import pack
@@ -88,11 +89,11 @@ def test_operator_on_cpu_runs_the_plain_versions(case):
     lie on the CPU; the operator's results are the plain functions'."""
     op, x, ref = case
     p = torch.as_tensor(ref["p"])
-    n1, n3 = warp_cuda.warp_jtj_apply.launches, warp_cuda.warp_linearize.launches
+    n1, n3 = LAUNCHES["K1.warp_jtj_apply"], LAUNCHES["K3.warp_linearize"]
     jtf, diag = op.outer(x)
     ap, pap = op.apply(p)
-    assert (warp_cuda.warp_jtj_apply.launches,
-            warp_cuda.warp_linearize.launches) == (n1, n3)
+    assert (LAUNCHES["K1.warp_jtj_apply"],
+            LAUNCHES["K3.warp_linearize"]) == (n1, n3)
     want = warp_cuda.warp_linearize_plain(x, op.ur, op.cons, op.mask_img,
                                           op.params)
     assert torch.equal(jtf, want[0]) and torch.equal(diag, want[1])
