@@ -18,8 +18,9 @@ Phases (any failure raises and the exit code is non-zero):
      400 PCG iterations, through NewState(device="cuda") ... plan.solve
      with engine="auto"; check that it picked the CUDA engine, that every
      kernel launched the expected number of times inside that solve (one
-     K13 resident_pcg an outer step, K3 for the outer steps, no K1 and no
-     K2), and that the final cost matches the JAX package's CPU value, and
+     K13 resident_pcg an outer step, each on its on-chip form, K3 for the
+     outer steps, no K1 and no K2), and that the final cost matches the JAX
+     package's CPU value, and
      the plain torch engine's on the same card at 2x100 the CUDA
      engine's;
   5. time warm solves of the CUDA engine (best of 3) beside the plain
@@ -95,7 +96,10 @@ Phases (any failure raises and the exit code is non-zero):
      counts (the plain loop once, after the check has warmed it):
      K12 poisson_cg (C = 1 and C = 4 with an all-zero channel), K13
      resident_pcg (the image_warping and the poisson hat applies; warp also
-     at 2048x2048, the cuda engine's GN there), each with the profiler's
+     at 2048x2048, the cuda engine's GN there, on the L2 form; warp at
+     512x512 on both forms, the on-chip one its grid takes and the L2 one,
+     each with its us an iteration, its share of the bound and ptxas's
+     registers, shared memory and spills), each with the profiler's
      device time a launch and an iteration beside its bound and its grid
      syncs (2 an iteration), K14
      stencil_apply (the JAX test's shapes and taps, radius 2, 4096x4096,
@@ -105,7 +109,8 @@ Phases (any failure raises and the exit code is non-zero):
      3):
        poisson 512x512, 400 CG iterations  -> PoissonCudaSolver (1 K12),
        poisson 2048x2048, 100 iterations   -> PoissonCudaSolver (1 K12),
-       image_warping 512x512 GN 8x400      -> StreamSolver (8 K13, K3),
+       image_warping 512x512 GN 8x400      -> StreamSolver (8 K13 on the
+                                              on-chip form, K3),
                                               beside the cuda engine (8
                                               K13, K3 too),
        poisson 512x512 GN 8x100            -> StreamSolver (8 K13),
@@ -347,6 +352,7 @@ KERNEL_SYMBOLS = (
     "vol_hat_apply_kernel", "vol_pipelined_sweep_kernel",
     "vol_linearize_kernel", "graph_gather_", "graph_scatter_",
     "graph_hat_edge_kernel", "graph_hat_vertex_kernel", "pcg_kernel<",
+    "warp_pcg_kernel",
     "stencil_kernel",
     "warp_slab_apply_kernel", "vol_slab_apply_kernel")
 
@@ -1541,15 +1547,20 @@ def check_cost(label, cost, want):
         raise AssertionError(f"{label}: final cost disagrees")
 
 
-def expected_launches(kind, engine, n_outer, n_linear, period=10):
-    """Launch counts one solve makes, by kernel name."""
+def expected_launches(kind, engine, n_outer, n_linear, period=10,
+                      onchip=False):
+    """Launch counts one solve makes, by kernel name; onchip: the grid takes
+    K13's on-chip form (stream_cuda.onchip_tiles)."""
     resets = n_outer * (n_linear // period) if kind == "LMGPU" else 0
     # K3: the initial cost, then per outer linearize + cost (+ LM's model
     # cost)
     k3 = 1 + n_outer * (3 if kind == "LMGPU" else 2)
     n = n_outer * n_linear
     if engine == "cuda" and kind != "LMGPU":  # one K13 an outer step
-        return {"K13.resident_pcg": n_outer, "K3.warp_linearize": k3}
+        want = {"K13.resident_pcg": n_outer, "K3.warp_linearize": k3}
+        if onchip:
+            want["K13.resident_pcg_onchip"] = n_outer
+        return want
     if engine == "cuda":
         return {"K1.warp_jtj_apply": n + resets, "K2.pcg_update": n - resets,
                 "K3.warp_linearize": k3}
@@ -1702,7 +1713,7 @@ def check_loop_cases(torch, cases, reps):
         out[name] = {"max_abs_err": absmax, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by}
         device_vs_bound(torch, out, {name: lambda: kern(n_time)},
-                        "pcg_kernel<", f"{n_time} iterations")
+                        "pcg_kernel", f"{n_time} iterations")
         if "device_ms" in out[name]:
             print(f"  device {name}: "
                   f"{out[name]['device_ms'] * 1e3 / n_time:.2f} us an "
@@ -1712,12 +1723,43 @@ def check_loop_cases(torch, cases, reps):
     return out
 
 
+def onchip_form(H, W):
+    """True where an H x W image_warping grid takes K13's on-chip form on
+    this card."""
+    from opt_tpu_torch.ops import build, stream_cuda
+
+    return bool(stream_cuda.onchip_tiles(H, W, *build.card_limits()))
+
+
+def ptxas_report(log, symbol):
+    """ptxas's lines (registers, stack, spills, static shared memory) for
+    each kernel whose mangled name holds symbol, from an nvcc -Xptxas -v
+    log."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif name and symbol in name and ("registers" in line
+                                          or "spill" in line):
+            out.append(line.strip())
+    return out
+
+
 def check_slice5_kernels(torch, dev, reps):
     """Phase 13: K12-K14 against their plain versions; name -> timings,
-    with library_ms (conv2d) for K14."""
+    with library_ms (conv2d) for K14.  K13's image_warping mode at 512^2
+    runs twice: on the form the grid takes (the on-chip one) and held to
+    the L2 form, each timed beside the same bound."""
     import torch.nn.functional as F
 
-    from opt_tpu_torch.ops import halo_stencil, poisson_cuda, stream_cuda
+    from opt_tpu_torch.ops import (build, halo_stencil, poisson_cuda,
+                                   stream_cuda)
+
+    class L2Form(stream_cuda.WarpHat):
+        """WarpHat held to K13's L2 form whatever its grid."""
+
+        def form(self, card):
+            return self
 
     cases = {}
     # the ragged size is timed at the checks' iterations: no row reads it
@@ -1751,16 +1793,40 @@ def check_slice5_kernels(torch, dev, reps):
         px = size[0] * size[1]
         ops = (OPS["resident_pcg(warp)"] * px if energy == "warp"
                else OPS["resident_pcg(poisson)"] * b_hat.numel())
-        cases[f"resident_pcg({energy}, {size[0]}x{size[1]})"] = (
-            lambda n, h=hat, s=sq, b=b_hat: stream_cuda.resident_pcg(
-                h, s, b, n),
-            lambda n, h=hat, s=sq, b=b_hat:
-                stream_cuda.resident_pcg_plain(h, s, b, n),
-            n_time, nbytes(*hat.operands.values(), sq, b_hat, b_hat),
-            ops * n_time,
-            9 * nbytes(b_hat) + nbytes(sq, *hat.operands.values()))
+        forms = {"": hat}
+        if energy == "warp" and size == (W, H):
+            forms[", L2 form"] = L2Form(*hat.operands.values())
+        tiles = (energy == "warp" and stream_cuda.onchip_tiles(
+            size[1], size[0], *build.card_limits()))
+        for tag, h in forms.items():
+            # the on-chip form moves only its tiles' edges through L2: r and
+            # p out, the ring's in, 24 bytes a ring pixel each way
+            moved = (48 * 2 * sum(stream_cuda.ONCHIP_TILE) * tiles
+                     if tiles and not tag else
+                     9 * nbytes(b_hat) + nbytes(sq, *hat.operands.values()))
+            cases[f"resident_pcg({energy}, {size[0]}x{size[1]}{tag})"] = (
+                lambda n, h=h, s=sq, b=b_hat: stream_cuda.resident_pcg(
+                    h, s, b, n),
+                lambda n, h=h, s=sq, b=b_hat:
+                    stream_cuda.resident_pcg_plain(h, s, b, n),
+                n_time, nbytes(*hat.operands.values(), sq, b_hat, b_hat),
+                ops * n_time, moved)
     print("slice-5 whole-loop kernels:")
     out = check_loop_cases(torch, cases, reps)
+    # K13's two forms of image_warping at 512^2, side by side
+    for tag, symbol, smem in (
+            ("", "onchip15warp_pcg_kernel",
+             f"{stream_cuda.ONCHIP_SMEM_BYTES} bytes of dynamic shared "
+             "memory a block"),
+            (", L2 form", "coop10pcg_kernelINS_8WarpLoop", "no dynamic "
+             "shared memory")):
+        row = out[f"resident_pcg(warp, {W}x{H}{tag})"]
+        ms = row.get("device_ms", row["ms"])
+        print(f"K13 warp {W}x{H}{tag or ', on-chip form'}: "
+              f"{ms * 1e3 / N_LINEAR:.2f} us an iteration "
+              f"({'profiler' if 'device_ms' in row else 'cuda events'}), "
+              f"{100 * row['bound_ms'] / ms:.1f}% of its bound; {smem}; "
+              f"ptxas: {'; '.join(ptxas_report(build.build_log, symbol))}")
     stencil = {}
     library = {}
     # cuDNN runs a float32 convolution in TF32 by default: the yardstick
@@ -1838,6 +1904,8 @@ def run_slice5_paths(torch, drive_call, card):
         want = {"K13.resident_pcg": n_outer}
         if warp:  # K3: the initial cost, then linearize and cost a step
             want["K3.warp_linearize"] = 1 + 2 * n_outer
+            if onchip_form(size, size):
+                want["K13.resident_pcg_onchip"] = n_outer
         check_launches(label, launches, want)
         for n, shape in plan.funcs.unknown_shapes.items():
             check_finite(f"{label} {n}", out["x"][n], shape)
@@ -2014,7 +2082,8 @@ def main():
     if engine != "cuda":
         raise AssertionError(f"engine='auto' picked {engine!r}, not 'cuda'")
     check_launches("main path", launches, expected_launches(
-        "gaussNewtonGPU", "cuda", N_OUTER, N_LINEAR))
+        "gaussNewtonGPU", "cuda", N_OUTER, N_LINEAR,
+        onchip=onchip_form(H, W)))
     check_unknowns(plan, {"Offset": (H, W, 2), "Angle": (H, W, 1)})
 
     rel_jax = abs(cost - JAX_CPU_FINAL_COST) / JAX_CPU_FINAL_COST

@@ -45,8 +45,17 @@
 // frame, no spills (5 blocks of 128 threads an SM; 6, at 80 registers,
 // spilled and ran slower at 2048^2); the poisson mode 60 registers, no
 // spills.
+//
+// The image_warping mode has two forms, picked by the grid's shape alone
+// (ops/stream_cuda.py onchip_tiles): where the grid's 32 x 64 tiles number
+// no more than the card's SMs and a tile's state fits a block's shared
+// memory, the on-chip form (resident_onchip.cuh, opt_resident_warp_onchip:
+// one block a tile and an SM, r, p, A_hat p and delta on chip for the
+// whole launch, only the tiles' edges through L2); elsewhere the L2 form
+// below (opt_resident_warp).  The two share warp_energy.cuh's math.
 
 #include "poisson_energy.cuh"
+#include "resident_onchip.cuh"
 #include "resident_pcg.cuh"
 #include "warp_tile.cuh"
 
@@ -287,4 +296,63 @@ extern "C" int opt_resident_poisson(const float* sq, const float* b_hat,
   const PoissonHat loop{H,     W, C, H * W,    sq,
                         b_hat, delta, r, {p0, p1}, ap, parts};
   return coop::launch(loop, n_iters, blocks, stream);
+}
+
+// The on-chip form's grid at H x W: one block a tile
+extern "C" int opt_resident_warp_onchip_blocks(int H, int W) {
+  return onchip::tiles(H, W);
+}
+
+// The current card's SMs and the shared memory a block may take (opted
+// in), which the on-chip form's rule reads; the CUDA error, or 0
+extern "C" int opt_card_limits(int* sms, int* smem_per_block) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        smem_per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) cudaGetLastError();  // this query's, not a launch's
+  return (int)err;
+}
+
+// image_warping's on-chip form: x, sq, b_hat, delta, r, p0, p1 are flat
+// (3 H W), of which r, p0 and p1 carry only the tiles' edges; parts holds
+// 4 blocks floats of scratch (two 8-byte slots a block), which the entry
+// zeroes on the stream.  blocks (opt_resident_warp_onchip_blocks) may not
+// be fewer than the tiles, nor more than the kernel's barrier reads; a grid
+// the card cannot hold at once is refused
+// (cudaErrorCooperativeLaunchTooLarge), as is a block's shared memory past
+// what the card grants
+extern "C" int opt_resident_warp_onchip(
+    const float* x, const float* ur, const float* cons, const float* mask,
+    const float* params, const float* sq, const float* b_hat, float* delta,
+    float* r, float* p0, float* p1, float* parts, int H, int W, int n_iters,
+    int blocks, void* stream) {
+  if (blocks < onchip::tiles(H, W) || blocks > onchip::kMaxBlocks)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      onchip::warp_pcg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)onchip::kSmemBytes);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear it: it is this call's, not a later one's
+    return (int)err;
+  }
+  auto* slots = reinterpret_cast<unsigned long long*>(parts);
+  err = cudaMemsetAsync(slots, 0, sizeof(*slots) * 2 * blocks,
+                        (cudaStream_t)stream);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  onchip::Params q{x,     ur, cons,     mask,  params, sq, b_hat,
+                   delta, r,  {p0, p1}, slots, H,      W};
+  void* args[] = {&q, &n_iters};
+  err = cudaLaunchCooperativeKernel((const void*)onchip::warp_pcg_kernel,
+                                    dim3(blocks), dim3(onchip::kThreads),
+                                    args, onchip::kSmemBytes,
+                                    (cudaStream_t)stream);
+  const cudaError_t last = cudaGetLastError();  // clears a refused launch
+  return err != cudaSuccess ? (int)err : (int)last;
 }

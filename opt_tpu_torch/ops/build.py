@@ -72,6 +72,9 @@ SIGNATURES = {
     "opt_resident_warp_blocks": [_I, _I],
     "opt_resident_poisson_blocks": [_I],
     "opt_resident_warp": [_P] * 13 + [_I] * 4 + [_P],
+    "opt_resident_warp_onchip_blocks": [_I, _I],
+    "opt_resident_warp_onchip": [_P] * 12 + [_I] * 4 + [_P],
+    "opt_card_limits": [ctypes.POINTER(_I)] * 2,
     "opt_resident_poisson": [_P] * 8 + [_I] * 5 + [_P],
     "opt_stencil_apply": [_P, _P] + [_I] * 4 + [_P] * 4,
     "opt_warp_slab_linearize": [_P] * 9 + [_I] * 7 + [_P],
@@ -173,6 +176,23 @@ def coop_blocks(n, name):
     if n <= 0:
         check(-n, name)
     return n
+
+
+_cards = {}
+
+
+def card_limits():
+    """(SMs, shared memory a block may take, opted in, in bytes) of the
+    current CUDA device, read once a device."""
+    import torch
+
+    dev = torch._C._cuda_getDevice()
+    if dev not in _cards:
+        sms, smem = ctypes.c_int(), ctypes.c_int()
+        check(library().opt_card_limits(ctypes.byref(sms),
+                                        ctypes.byref(smem)), "card_limits")
+        _cards[dev] = (sms.value, smem.value)
+    return _cards[dev]
 
 
 def ptr(t):

@@ -36,10 +36,17 @@ The resident-state solver (row 3, StreamSolver._build_kernel) is the
 third hat-space backend: one launch per outer step of
 
   K13 resident_pcg  lIterations of p = r + beta p_prev, A_hat p, the dots
-                    and the updates, every vector kept in device memory (L2
-                    at 512^2) across two grid syncs an iteration
-                    (csrc/resident_kernels.cu on csrc/resident_pcg.cuh), for
-                    image_warping and poisson_image_editing
+                    and the updates across two grid syncs an iteration, for
+                    image_warping and poisson_image_editing.  Two forms of
+                    image_warping's, picked by the grid's shape alone
+                    (onchip_tiles): where the grid's 32 x 64 tiles number no
+                    more than the card's SMs and a tile's state fits a
+                    block's shared memory, the on-chip form (one block a
+                    tile and an SM, every vector on chip for the whole
+                    launch, only the tiles' edges through L2:
+                    csrc/resident_onchip.cuh); elsewhere, and for poisson,
+                    every vector in device memory (L2 at 512^2:
+                    csrc/resident_kernels.cu on csrc/resident_pcg.cuh)
 
 It is the "cuda" engine's GN PCG (warp_resident_backend, given to
 WarpOperator by runtime/api.py for GN with the classic pcg_variant), and
@@ -384,13 +391,46 @@ class StreamOperator(WarpOperator):
 # ---------------------------------------------------------------------------
 
 
+# K13's on-chip form (csrc/resident_onchip.cuh): a block a tile of
+# ONCHIP_TILE pixels (rows, columns), holding in shared memory three float4
+# a pixel over the tile and its one-pixel ring, and 17 floats of scratch;
+# its barrier reads ONCHIP_MAX_TILES blocks' partials at most
+ONCHIP_TILE = (32, 64)
+ONCHIP_SMEM_BYTES = 16 * (3 * (ONCHIP_TILE[0] + 2) * (ONCHIP_TILE[1] + 2)
+                          + 5)
+ONCHIP_MAX_TILES = 256
+
+
+def onchip_tiles(H, W, sms, smem_per_block):
+    """The tiles of K13's on-chip form for an H x W image_warping grid on a
+    card of `sms` SMs whose blocks may take `smem_per_block` bytes of
+    shared memory: one block a tile and an SM, so the form holds where the
+    tiles number no more than the SMs and a tile's state fits a block.  0
+    where it does not: the grid takes the L2 form."""
+    th, tw = ONCHIP_TILE
+    tiles = -(-H // th) * -(-W // tw)
+    fits = (tiles <= min(sms, ONCHIP_MAX_TILES)
+            and ONCHIP_SMEM_BYTES <= smem_per_block)
+    return tiles if fits else 0
+
+
 class WarpHat:
     """image_warping's A_hat for K13, at the linearization point x, on the
-    flat (3 H W) layout."""
+    flat (3 H W) layout; its launch is the L2 form's."""
+
+    parts_per_block = 2  # floats of scratch: a partial a dot
 
     def __init__(self, x, ur, cons, mask, params):
         self.operands = dict(x=x, ur=ur, cons=cons, mask=mask, params=params)
         self.H, self.W = mask.shape[:2]
+
+    def form(self, card):
+        """The form that runs this grid on a card of card = (SMs, shared
+        memory a block may take): the on-chip one where onchip_tiles
+        holds."""
+        if onchip_tiles(self.H, self.W, *card):
+            return OnChipWarpHat(**self.operands)
+        return self
 
     def shapes(self):
         return _shapes(self.H, self.W)
@@ -413,12 +453,43 @@ class WarpHat:
             self.W, n_iters, blocks, build.stream())
 
 
+class OnChipWarpHat(WarpHat):
+    """WarpHat whose launch is K13's on-chip form."""
+
+    parts_per_block = 4  # a tagged 8-byte slot a dot
+
+    def form(self, card):
+        return self
+
+    def blocks(self, lib):
+        return lib.opt_resident_warp_onchip_blocks(self.H, self.W)
+
+    def launch(self, lib, vecs, n_iters, blocks):
+        return resident_pcg_onchip(lib, self, vecs, n_iters, blocks)
+
+
+@kernel("K13.resident_pcg_onchip")
+def resident_pcg_onchip(lib, hat, vecs, n_iters, blocks):
+    """K13's on-chip form: one cooperative launch on vecs = (sq, b_hat,
+    delta, r, p0, p1, ap, parts), of which r, p0 and p1 carry only the
+    tiles' edges and ap is not read; raises on a failed launch."""
+    sq, b_hat, delta, r, p0, p1, _, parts = vecs
+    rc = lib.opt_resident_warp_onchip(
+        *map(build.ptr, (*hat.operands.values(), sq, b_hat, delta, r, p0, p1,
+                         parts)),
+        hat.H, hat.W, n_iters, blocks, build.stream())
+    build.check(rc, "resident_pcg")
+    LAUNCHES["K13.resident_pcg_onchip"] += 1
+    return rc
+
+
 class PoissonHat:
     """poisson_image_editing's A_hat for K13 on the flat (H, W, C) vector:
     sq J^T J (sq v); sq is 0 at the excluded pixels.  The kernel runs on
     (C, H, W) planes, as K12 does."""
 
     operands = {}
+    parts_per_block = 2
 
     def __init__(self, H, W, C):
         self.H, self.W, self.C = H, W, C
@@ -436,6 +507,9 @@ class PoissonHat:
     def flat(self, v):
         """(C, H, W) planes as the flat (H, W, C) vector."""
         return v.permute(1, 2, 0).reshape(-1)
+
+    def form(self, card):
+        return self
 
     def blocks(self, lib):
         return lib.opt_resident_poisson_blocks(self.H * self.W)
@@ -494,8 +568,9 @@ def resident_pcg_phases_plain(hat, sq, b_hat, n_iters):
 @kernel("K13.resident_pcg")
 def resident_pcg(hat, sq, b_hat, n_iters):
     """K13: d_hat after n_iters of PCG in the hat space (hat: WarpHat or
-    PoissonHat) -- one cooperative launch on CUDA, plain (in the kernel's
-    phase order) on CPU."""
+    PoissonHat) -- one cooperative launch on CUDA, of the form the card
+    holds for the grid (hat.form), plain (in the kernel's phase order) on
+    CPU."""
     if build.all_on_cpu(sq, b_hat, *hat.operands.values()):
         return resident_pcg_phases_plain(hat, sq, b_hat, n_iters)
     n = b_hat.numel()
@@ -503,11 +578,13 @@ def resident_pcg(hat, sq, b_hat, n_iters):
                                          "b_hat": (n,)},
                         **hat.operands, sq=sq, b_hat=b_hat)
     lib = build.library()
+    hat = hat.form(build.card_limits())
     blocks = build.coop_blocks(hat.blocks(lib), "resident_pcg")
     sq_k, b_k = hat.planes(sq), hat.planes(b_hat)
     # p0 and p1: the ping-pong pair of p_prev and p
     delta, r, p0, p1, ap = (torch.empty_like(b_k) for _ in range(5))
-    parts = torch.empty(2 * blocks, dtype=b_hat.dtype, device=b_hat.device)
+    parts = torch.empty(hat.parts_per_block * blocks, dtype=b_hat.dtype,
+                        device=b_hat.device)
     rc = hat.launch(lib, (sq_k, b_k, delta, r, p0, p1, ap, parts),
                     int(n_iters), blocks)
     build.check(rc, "resident_pcg")

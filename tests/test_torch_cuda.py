@@ -939,6 +939,51 @@ def test_resident_pcg_kernel_at_the_paths_grids(dev, energy, size):
     assert torch.equal(got, stream_cuda.resident_pcg(hat, sq, b_hat, n))
 
 
+# K13's on-chip form against its plain loop: float32 loops that sum in
+# different orders part by a few 1e-6 over 400 iterations at 512^2
+ONCHIP_RTOL = 1e-4
+K13_FORMS = ("K13.resident_pcg", "K13.resident_pcg_onchip")
+
+
+@pytest.mark.parametrize("n_iters", [chip_smoke.RESIDENT_CHECK_ITERS,
+                                     chip_smoke.N_LINEAR])
+def test_resident_pcg_onchip_form_at_512(dev, n_iters):
+    """The main path's 512^2 grid takes K13's on-chip form (one launch
+    on each counter), within ONCHIP_RTOL of the plain loop after 50 and
+    400 iterations, and bit for bit on a second launch."""
+    hat, sq, b_hat = chip_smoke.resident_operands(torch, "warp", 512, 512,
+                                                  dev)
+    before = [LAUNCHES[k] for k in K13_FORMS]
+    got = stream_cuda.resident_pcg(hat, sq, b_hat, n_iters)
+    assert [LAUNCHES[k] - n for k, n in zip(K13_FORMS, before)] == [1, 1]
+    want = stream_cuda.resident_pcg_plain(hat, sq, b_hat, n_iters)
+    assert float((got - want).abs().max()) <= ONCHIP_RTOL * float(
+        want.abs().max())
+    assert not got[sq == 0].any()
+    assert torch.equal(got, stream_cuda.resident_pcg(hat, sq, b_hat,
+                                                     n_iters))
+
+
+@pytest.mark.parametrize("W,H,onchip", [(37, 23, True), (512, 512, True),
+                                        (448, 608, False),
+                                        (2048, 2048, False)])
+def test_resident_pcg_form_follows_the_rule(dev, W, H, onchip):
+    """The grid the C entry launches is the rule's tile count; a grid past
+    the rule (one tile past the SMs, 2048^2) runs on the L2 form, counted
+    only on K13.resident_pcg."""
+    from opt_tpu_torch.ops import build
+
+    tiles = stream_cuda.onchip_tiles(H, W, *build.card_limits())
+    assert bool(tiles) == onchip
+    if onchip:
+        assert build.library().opt_resident_warp_onchip_blocks(H, W) == tiles
+    hat, sq, b_hat = chip_smoke.resident_operands(torch, "warp", W, H, dev)
+    before = [LAUNCHES[k] for k in K13_FORMS]
+    stream_cuda.resident_pcg(hat, sq, b_hat, 5)
+    assert [LAUNCHES[k] - n for k, n in zip(K13_FORMS, before)] == [
+        1, int(onchip)]
+
+
 @pytest.mark.parametrize("size", [512, 2048])
 def test_poisson_cg_kernel_at_the_paths_grids(dev, size):
     """K12 with four channels, one all zero, on the paths' keep mask."""
@@ -959,20 +1004,22 @@ def test_poisson_cg_kernel_at_the_paths_grids(dev, size):
 
 def test_cuda_engine_gn_runs_one_k13_launch_an_outer_step(dev):
     """bench.py's main path, 512^2 GN 8x400 through engine="auto": the
-    cuda engine, 8 K13 launches and K3's 17, no K1 and no K2; the final
-    cost within COST_RTOL of the JAX package's CPU value."""
+    cuda engine, 8 K13 launches, all on the on-chip form, and K3's 17, no
+    K1 and no K2; the final cost within COST_RTOL of the JAX package's CPU
+    value."""
     import opt_tpu_torch
     from opt_tpu_torch import energies
 
     plan = chip_smoke.new_plan(opt_tpu_torch, energies, "gaussNewtonGPU",
                                512, 8, 400)
     inputs = chip_smoke.warp_inputs(512, 512)
-    kernels = ("K13.resident_pcg", "K3.warp_linearize", "K1.warp_jtj_apply",
-               "K2.pcg_update")
+    kernels = ("K13.resident_pcg", "K13.resident_pcg_onchip",
+               "K3.warp_linearize", "K1.warp_jtj_apply", "K2.pcg_update")
     before = [LAUNCHES[k] for k in kernels]
     cost = plan.solve(inputs)
     assert plan.engine == "cuda"
-    assert [LAUNCHES[k] - b for k, b in zip(kernels, before)] == [8, 17, 0, 0]
+    assert [LAUNCHES[k] - b for k, b in zip(kernels, before)] == [
+        8, 8, 17, 0, 0]
     assert cost == pytest.approx(chip_smoke.JAX_CPU_FINAL_COST,
                                  rel=chip_smoke.COST_RTOL)
 

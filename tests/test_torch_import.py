@@ -53,7 +53,8 @@ def test_build_key_covers_every_source():
     for name in ("poisson_kernels.cu", "resident_kernels.cu",
                  "stencil_kernels.cu"):
         assert name in srcs
-    for name in ("poisson_energy.cuh", "resident_pcg.cuh"):
+    for name in ("poisson_energy.cuh", "resident_pcg.cuh",
+                 "resident_onchip.cuh"):
         assert name in [h.name for h in build.headers()]
     assert build._key() == build._key()
     assert "-gencode" in build.NVCC_FLAGS
@@ -106,10 +107,12 @@ def test_slice5_kernels_are_bound():
 
     for name in ("opt_poisson_cg_blocks", "opt_poisson_cg",
                  "opt_resident_warp_blocks", "opt_resident_warp",
-                 "opt_resident_poisson_blocks", "opt_resident_poisson",
-                 "opt_stencil_apply"):
+                 "opt_resident_warp_onchip_blocks", "opt_resident_warp_onchip",
+                 "opt_card_limits", "opt_resident_poisson_blocks",
+                 "opt_resident_poisson", "opt_stencil_apply"):
         assert name in build.SIGNATURES
-    for k in ("K12.poisson_cg", "K13.resident_pcg", "K14.stencil_apply"):
+    for k in ("K12.poisson_cg", "K13.resident_pcg", "K13.resident_pcg_onchip",
+              "K14.stencil_apply"):
         assert LAUNCHES[k] >= 0
     for k in (poisson_cuda.poisson_cg, stream_cuda.resident_pcg,
               halo_stencil.stencil_apply):

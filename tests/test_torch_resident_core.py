@@ -3,7 +3,8 @@ phase order rendered in torch (stream_cuda.resident_pcg_phases_plain,
 K13's plain path) against the classic loop (resident_pcg_plain), bit for
 bit; the "cuda" engine's Gauss-Newton PCG on K13 (its plain path) against
 the JAX package's Plan.solve; which plans give WarpOperator K13 as its
-pcg_backend; and K12's plain loop against the JAX kernel
+pcg_backend; which grids take K13's on-chip form on an H100
+(stream_cuda.onchip_tiles); and K12's plain loop against the JAX kernel
 poisson_cg_vmem in interpret mode at the card checks' ragged grid and
 iteration count.
 
@@ -109,6 +110,54 @@ def test_cuda_engine_takes_k13_for_gn_classic_only(kind, variant, resident):
     assert isinstance(plan._op, warp_cuda.WarpOperator)
     assert (plan._op.pcg_backend is not None) == resident
     assert warp_cuda.WarpOperator.pcg_backend is None
+
+
+# an H100's SMs and the shared memory a block may take (opted in)
+H100 = (132, 232_448)
+
+
+@pytest.mark.parametrize("H,W,tiles", [
+    (512, 512, 128),   # the main path: 16 x 8 tiles of 32 x 64
+    (23, 37, 1),       # the card checks' ragged grid, one ragged tile
+    (576, 448, 126),   # 18 x 7
+    (608, 448, 0),     # 19 x 7 = 133 tiles, one past the SMs
+    (1024, 1024, 0),   # 512 tiles
+    (2048, 2048, 0),   # the cuda engine's explicit GN there
+])
+def test_onchip_form_by_shape_on_an_h100(H, W, tiles):
+    """K13's on-chip form runs where the grid's tiles number no more than
+    the SMs; past that the grid takes the L2 form (0 tiles)."""
+    assert stream_cuda.onchip_tiles(H, W, *H100) == tiles
+
+
+def test_onchip_form_needs_a_tiles_state_in_a_block():
+    need = stream_cuda.ONCHIP_SMEM_BYTES
+    assert need == 16 * (3 * 34 * 66 + 5) < H100[1]
+    assert stream_cuda.onchip_tiles(512, 512, 132, need) == 128
+    assert stream_cuda.onchip_tiles(512, 512, 132, need - 1) == 0
+    assert stream_cuda.onchip_tiles(512, 512, 128, need) == 128
+    assert stream_cuda.onchip_tiles(512, 512, 127, need) == 0
+    # the barrier reads ONCHIP_MAX_TILES blocks' partials at most
+    assert stream_cuda.onchip_tiles(512, 1024, 1000, need) == 256
+    assert stream_cuda.onchip_tiles(544, 1024, 1000, need) == 0
+
+
+@pytest.mark.parametrize("H,W,onchip", [(512, 512, True), (608, 448, False),
+                                        (2048, 2048, False)])
+def test_warp_hat_takes_the_form_of_its_shape(H, W, onchip):
+    """WarpHat.form gives the on-chip form, on the same operands, where the
+    rule holds, and the L2 form (itself) elsewhere; poisson keeps its
+    one form."""
+    mask = torch.zeros(H, W, 1)
+    hat = stream_cuda.WarpHat(torch.zeros(3 * H * W), torch.zeros(H, W, 2),
+                              torch.zeros(H, W, 2), mask, torch.ones(2))
+    form = hat.form(H100)
+    assert isinstance(form, stream_cuda.OnChipWarpHat) == onchip
+    assert (form is hat) != onchip
+    assert form.operands == hat.operands and (form.H, form.W) == (H, W)
+    assert form.form(H100) is form
+    poisson = stream_cuda.PoissonHat(H, W, 4)
+    assert poisson.form(H100) is poisson
 
 
 def test_poisson_cg_plain_matches_poisson_cg_vmem_at_the_card_checks():

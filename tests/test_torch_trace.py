@@ -21,16 +21,16 @@ torch.set_num_threads(1)
 
 OPS = Path(opt_tpu_torch.__file__).parent / "ops"
 N_OUTER, N_LINEAR = 2, 4
-# every kernel of PERF.md's table, with K3's and K8's slab modes and K11's
-# two passes
+# every kernel of PERF.md's table, with K3's and K8's slab modes, K11's
+# two passes and K13's on-chip form
 COUNTERS = {
     "K1.warp_jtj_apply", "K2.pcg_update", "K3.warp_linearize",
     "K3.warp_slab_linearize", "K4.warp_hat_apply", "K5.warp_pipelined_sweep",
     "K6.vol_hat_apply", "K7.vol_pipelined_sweep", "K8.vol_linearize",
     "K8.vol_slab_linearize", "K9.graph_gather", "K10.graph_scatter",
     "K11.graph_hat_edge", "K11.graph_hat_vertex", "K12.poisson_cg",
-    "K13.resident_pcg", "K14.stencil_apply", "K15.warp_slab_apply",
-    "K16.vol_slab_apply"}
+    "K13.resident_pcg", "K13.resident_pcg_onchip", "K14.stencil_apply",
+    "K15.warp_slab_apply", "K16.vol_slab_apply"}
 
 
 def _plan(**state):
@@ -110,6 +110,32 @@ def test_solve_span_tree(engine):
     assert [p for k, p in kernels if "K13" in k] == ["opt.pcg"] * N_OUTER
     # K3: the initial cost, then each step's linearize and new cost
     assert len(kernels) == N_OUTER + 1 + 2 * N_OUTER
+
+
+@pytest.mark.cuda
+def test_main_path_runs_k13_on_chip_inside_opt_pcg():
+    """On the card, a 512^2 GN 8x400 solve (the main path) runs each of its
+    8 K13 launches on the on-chip form: 8 on each counter, and 8 spans
+    opt.kernel.K13.resident_pcg_onchip whose nearest phase is opt.pcg."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    plan = chip_smoke.new_plan(opt_tpu_torch, energies, "gaussNewtonGPU",
+                               512, 8, 400)
+    inputs = chip_smoke.warp_inputs(512, 512)
+    plan.solve(inputs)  # the first call's set-up untraced
+    forms = ("K13.resident_pcg", "K13.resident_pcg_onchip")
+    before = [LAUNCHES[k] for k in forms]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        plan.solve(inputs)
+    assert [LAUNCHES[k] - n for k, n in zip(forms, before)] == [8, 8]
+    events = [(e.name(), e.start_ns(), e.end_ns(), e.start_thread_id(),
+               e.is_user_annotation())
+              for e in prof.profiler.kineto_results.events()]
+    kernels = list(_kernel_spans(_tree(events)[0]))
+    assert [p for k, p in kernels
+            if k == "opt.kernel.K13.resident_pcg_onchip"] == ["opt.pcg"] * 8
+    assert [p for k, p in kernels
+            if k == "opt.kernel.K13.resident_pcg"] == ["opt.pcg"] * 8
 
 
 def test_spans_are_no_user_annotations():
