@@ -37,8 +37,10 @@ Phases (any failure raises and the exit code is non-zero):
   7. run the slice-2 paths through engine="auto", each with its own
      launch counts zeroed just before it and read just after, its final
      cost held against the JAX package's CPU value:
-       2048x2048 GN 8x100  -> "stream", pipelined (K4 + K5, K3),
+       2048x2048 GN 8x100  -> "stream", classic (K4 + K2 hat, K3),
        2048x2048 LM 8x100  -> "stream", classic (K4 + K2 hat, K3),
+       2048x2048 GN 8x100 with stream_variant pipelined
+                           -> "stream", pipelined (K4 + K5, K3),
        512x512   LM 8x400  -> "cuda" (K1 + ctc, K2 with q, K3);
      and time each path's warm solve (best of 3);
   8. the card's own crossover, GN and LM 8x100 at 1024x1024 and
@@ -164,16 +166,19 @@ TORCH_OUTER, TORCH_LINEAR = 2, 100
 #     p.set_solver_parameter('lIterations', 400); \
 #     print(repr(p.solve(bench.warp_inputs(512, 512), engine='xla')))"
 JAX_CPU_FINAL_COST = 8170.7724609375
-# The slice-2 paths: (label, solver kind, size, outer, PCG iterations, the
-# engine and stream variant engine="auto" must pick, the opt_tpu (JAX, CPU)
-# final cost).  Each cost is the command above with the kind, size and
+# The slice-2 paths: (label, solver kind, size, outer, PCG iterations,
+# Plan.stream_variant, the engine and stream variant engine="auto" must
+# pick, the opt_tpu (JAX, CPU) final cost).  Each cost is the command above with the kind, size and
 # iteration counts changed ('LMGPU' for LM; 2048 and 100 for the large
 # grid); they took 24 s, 140 s and 153 s on a CPU.
 PATHS = (
-    ("2048 GN", "gaussNewtonGPU", 2048, 8, 100, "stream", "pipelined",
+    ("2048 GN", "gaussNewtonGPU", 2048, 8, 100, None, "stream", "classic",
      129813.453125),
-    ("2048 LM", "LMGPU", 2048, 8, 100, "stream", "classic", 129824.890625),
-    ("512 LM", "LMGPU", 512, 8, 400, "cuda", None, 8171.9326171875),
+    ("2048 LM", "LMGPU", 2048, 8, 100, None, "stream", "classic",
+     129824.890625),
+    ("512 LM", "LMGPU", 512, 8, 400, None, "cuda", None, 8171.9326171875),
+    ("2048 GN pipelined", "gaussNewtonGPU", 2048, 8, 100, "pipelined",
+     "stream", "pipelined", 129813.453125),
 )
 BIG = 2048
 # the whole-solve kernel's own parity bound (docs/GUIDE.md:204-207)
@@ -224,9 +229,9 @@ SMALL_VOL = (37, 23, 11)
 SHARD_SLABS = 4
 SHARD_PATHS = (
     ("2048 GN pipelined", "image_warping", "gaussNewtonGPU", BIG, 8, 100,
-     "stream", None, "pipelined", "stream", 2e-5, PATHS[0][-1]),
+     "stream", "pipelined", "pipelined", "stream", 2e-5, PATHS[0][-1]),
     ("2048 GN classic", "image_warping", "gaussNewtonGPU", BIG, 8, 100,
-     "stream", "classic", "classic", "stream", 2e-5, PATHS[0][-1]),
+     "stream", None, "classic", "stream", 2e-5, PATHS[0][-1]),
     ("2048 LM", "image_warping", "LMGPU", BIG, 8, 100, "stream", None,
      "classic", "stream", 2e-5, PATHS[1][-1]),
     ("128^3 GN", "volumetric_mesh_deformation", "gaussNewtonGPU", VOL, 8,
@@ -1548,9 +1553,10 @@ def check_cost(label, cost, want):
 
 
 def expected_launches(kind, engine, n_outer, n_linear, period=10,
-                      onchip=False):
+                      onchip=False, variant="classic"):
     """Launch counts one solve makes, by kernel name; onchip: the grid takes
-    K13's on-chip form (stream_cuda.onchip_tiles)."""
+    K13's on-chip form (stream_cuda.onchip_tiles); variant: the stream
+    engine's backend (GN's pipelined, or classic)."""
     resets = n_outer * (n_linear // period) if kind == "LMGPU" else 0
     # K3: the initial cost, then per outer linearize + cost (+ LM's model
     # cost)
@@ -1564,7 +1570,7 @@ def expected_launches(kind, engine, n_outer, n_linear, period=10,
     if engine == "cuda":
         return {"K1.warp_jtj_apply": n + resets, "K2.pcg_update": n - resets,
                 "K3.warp_linearize": k3}
-    if kind == "LMGPU":  # the classic backend
+    if variant == "classic":
         return {"K4.warp_hat_apply": n + resets, "K2.pcg_update": n,
                 "K3.warp_linearize": k3}
     return {"K4.warp_hat_apply": n_outer, "K5.warp_pipelined_sweep": n,
@@ -2117,10 +2123,11 @@ def main():
     print(f"[{time.perf_counter() - t_start:.1f} s] slice 2")
     timings.update(check_big_kernels(torch, dev))
     big_inputs = warp_inputs(BIG, BIG)
-    for (label, kind, size, n_outer, n_linear, want_engine, want_variant,
-         want_cost) in PATHS:
+    for (label, kind, size, n_outer, n_linear, variant, want_engine,
+         want_variant, want_cost) in PATHS:
         plan = new_plan(opt_tpu_torch, energies, kind, size, n_outer,
                         n_linear)
+        plan.stream_variant = variant
         path_inputs = big_inputs if size == BIG else warp_inputs(size, size)
         cost, ms, launches = drive(plan, path_inputs)
         print(f"path {label} {n_outer}x{n_linear}: engine={plan.engine} "
@@ -2131,7 +2138,7 @@ def main():
                 f"{label}: engine='auto' picked {plan.engine!r} "
                 f"{plan.variant!r}, not {want_engine!r} {want_variant!r}")
         check_launches(label, launches, expected_launches(
-            kind, want_engine, n_outer, n_linear))
+            kind, want_engine, n_outer, n_linear, variant=want_variant))
         check_unknowns(plan, {"Offset": (size, size, 2),
                               "Angle": (size, size, 1)})
         check_cost(label, cost, want_cost)

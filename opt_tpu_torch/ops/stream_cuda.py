@@ -53,9 +53,13 @@ WarpOperator by runtime/api.py for GN with the classic pcg_variant), and
 StreamSolver's, whose outer step runs on WarpOperator's K3 or on the plan's
 evaluator.
 
-Variant choice as in stream_solver.py:725-760: GN runs pipelined, LM
-classic; variant= picks either for either.  Every vector is the solver's
-flat unknown layout (Offset (H, W, 2) then Angle (H, W, 1)); the kernels
+GN and LM both run the classic loop unless variant= picks the pipelined
+one (stream_solver.py:725-760 gives GN pipelined).  On image_warping's hat
+system the float32 pipelined recurrences drift from the residual they
+stand for: at 2048^2, 8 x 400 on an NVIDIA H100 GN's final cost parted
+from the float64 reference's by 28 to 4.6e6 times its value, where the
+classic loop stayed within 1e-7 of it and ran 5.5% faster (PERF.md).
+Every vector is the solver's flat unknown layout (Offset (H, W, 2) then Angle (H, W, 1)); the kernels
 read their one-pixel halo in place, so nothing is padded.  The kernel
 wrappers run their plain torch versions (warp_hat_apply_plain,
 warp_pipelined_sweep_plain) for CPU tensors, so on a CPU plan
@@ -100,12 +104,10 @@ def prefers_stream(plan):
     return pixels >= AUTO_STREAM_MIN_PIXELS
 
 
-def pick_variant(uses_lambda, variant=None):
-    """The backend a plan runs: pipelined for GN, classic for LM, unless
-    variant names one."""
-    if variant is None:
-        return "classic" if uses_lambda else "pipelined"
-    return check_variant(variant)
+def pick_variant(variant=None):
+    """The backend a 2-D plan runs, on one card or over a mesh: classic
+    for GN and LM, unless variant names one."""
+    return "classic" if variant is None else check_variant(variant)
 
 
 def check_variant(variant):
@@ -369,7 +371,7 @@ class StreamOperator(WarpOperator):
     def __init__(self, data, uses_lambda, variant=None):
         super().__init__(data)
         self.uses_lambda = uses_lambda
-        self.variant = pick_variant(uses_lambda, variant)
+        self.variant = pick_variant(variant)
 
     def pcg_backend(self, sq, scs, b_hat, sp):
         lm = self.uses_lambda

@@ -192,9 +192,9 @@ class Plan:
          self._full_solve_fn) = make_solver(
             self.config, state.dtype, self.funcs.use_preconditioner)
         self.solver_params = dict(SOLVER_PARAMETER_DEFAULTS)
-        # the streamed engines' PCG backend: None picks pipelined for GN
-        # and classic for LM on 2-D grids (stream_cuda.pick_variant), and
-        # pipelined for both on volumes (stream3d_cuda.pick_variant3d)
+        # the streamed engines' PCG backend: None picks classic for GN and
+        # LM on 2-D grids (stream_cuda.pick_variant), and pipelined for
+        # both on volumes (stream3d_cuda.pick_variant3d)
         self.stream_variant = None
         self.engine = None  # the engine of the last init() or solve()
         self.variant = None  # and its stream backend, if it ran one

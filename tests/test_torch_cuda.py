@@ -241,12 +241,16 @@ def test_stream_engine_agrees_with_cuda_engine(dev, kind):
     plan.set_solver_parameter("lIterations", 40)
     inputs = chip_smoke.warp_inputs(96, 64, seed=6)
     inputs["Mask"][20, 30] = 1.0
-    cost = plan.solve(inputs, engine="stream")
-    assert plan.variant == ("classic" if kind == "LMGPU" else "pipelined")
     want = plan.solve(inputs, engine="cuda")
-    assert np.isfinite(cost)
-    assert cost == pytest.approx(want, rel=1e-4)
-    assert plan.solve(inputs, engine="stream") == cost
+    # classic by default; GN's pipelined loop on request
+    for variant in (("classic", "pipelined") if kind == "gaussNewtonGPU"
+                    else ("classic",)):
+        plan.stream_variant = None if variant == "classic" else variant
+        cost = plan.solve(inputs, engine="stream")
+        assert plan.variant == variant
+        assert np.isfinite(cost)
+        assert cost == pytest.approx(want, rel=1e-4)
+        assert plan.solve(inputs, engine="stream") == cost
 
 
 def test_kernels_reject_bad_operands(dev):
@@ -1367,8 +1371,8 @@ def test_sharded_engines_agree_on_the_card(dev, kind):
     assert plan.solve(inputs, engine="stream", mesh=mesh) == cost
     want = plan.solve(inputs, engine="stream")
     assert np.isfinite(cost) and cost == pytest.approx(want, rel=2e-5)
-    # GN's pipelined recurrences amplify the sums' other order: the
-    # unknowns part by up to 6.4e-4 (of 5.2) here on the CPU's plain path
+    # the sums' other order moves the unknowns: GN's pipelined loop parted
+    # them by up to 6.4e-4 (of 5.2) here on the CPU's plain path
     for n, v in plan.unknowns().items():
         np.testing.assert_allclose(x[n], v, rtol=1e-3, atol=1e-3)
     inputs = chip_smoke.volume_inputs(12)

@@ -257,3 +257,24 @@ def test_stream3d_on_a_mesh_matches_jax(kind):
                        mesh=make_mesh(N, device="cpu"))
     assert tplan.engine == "stream3d"
     assert cost == pytest.approx(want, rel=5e-4)
+
+
+@pytest.mark.parametrize("engine,variant,its,rtol", [
+    ("stream", "classic", 101, 2e-5), ("stream3d", "pipelined", 3, 5e-4)])
+def test_gn_on_a_mesh_takes_the_single_card_variant(engine, variant, its,
+                                                    rtol):
+    """GN over a mesh picks its PCG loop as the single-card engine does
+    (stream_cuda.pick_variant: classic on 2-D grids at any iteration
+    count; stream3d_cuda.pick_variant3d: pipelined on volumes) and ends
+    where that engine does, at the tolerances above."""
+    vol = engine == "stream3d"
+    dims = [W3, H3, D3] if vol else [W2, H2]
+    inputs = _vol_inputs(*dims) if vol else _warp_inputs(*dims)
+    _, tplan = _plans(VOL if vol else WARP, dims, l=its)
+    cost = tplan.solve(inputs, engine=engine,
+                       mesh=make_mesh(N, device="cpu"))
+    assert (tplan.engine, tplan.variant) == (engine, variant)
+    _, single = _plans(VOL if vol else WARP, dims, l=its)
+    assert cost == pytest.approx(single.solve(inputs, engine=engine),
+                                 rel=rtol)
+    assert single.variant == variant

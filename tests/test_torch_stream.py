@@ -55,6 +55,7 @@ def test_stream_engine_matches_stream_solver_hbm(hbm):
     variant, params, inputs, out = hbm
     _, tplan = make_plans("image_warping", KINDS[variant], W, H, 2, 12,
                           params)
+    tplan.stream_variant = variant
     cost = tplan.solve(inputs, engine="stream")
     assert (tplan.engine, tplan.variant) == ("stream", variant)
     assert cost == pytest.approx(out["final_cost"], rel=1e-4)
@@ -149,13 +150,30 @@ def test_auto_route_matches_jax(monkeypatch, kind):
 
 
 def test_variant_choice():
-    assert stream_cuda.pick_variant(False) == "pipelined"
-    assert stream_cuda.pick_variant(True) == "classic"
-    assert stream_cuda.pick_variant(False, "classic") == "classic"
-    # the pipelined kernel's LM mode: on request only, as in the JAX route
-    assert stream_cuda.pick_variant(True, "pipelined") == "pipelined"
+    assert stream_cuda.pick_variant() == "classic"
+    assert stream_cuda.pick_variant("classic") == "classic"
+    # the pipelined kernel (GN, and its LM mode): on request only
+    assert stream_cuda.pick_variant("pipelined") == "pipelined"
     with pytest.raises(ValueError, match="variant"):
-        stream_cuda.pick_variant(False, "fancy")
+        stream_cuda.pick_variant("fancy")
+
+
+@pytest.mark.parametrize("kind,its", [("gaussNewtonGPU", 12),
+                                      ("gaussNewtonGPU", 101),
+                                      ("LMGPU", 12)])
+def test_plan_runs_the_classic_loop_unless_asked(kind, its):
+    """A plan on the stream engine runs the classic loop for GN and LM at
+    any PCG iteration count and holds the JAX package's XLA solve there;
+    Plan.stream_variant still picks the pipelined loop."""
+    inputs = _warp_inputs(24, 16)
+    jplan, tplan = make_plans("image_warping", kind, 24, 16, 1, its)
+    cost = tplan.solve(inputs, engine="stream")
+    assert (tplan.engine, tplan.variant) == ("stream", "classic")
+    assert cost == pytest.approx(jplan.solve(inputs, engine="xla"),
+                                 rel=1e-4)
+    tplan.stream_variant = "pipelined"
+    tplan.solve(inputs, engine="stream")
+    assert tplan.variant == "pipelined"
 
 
 def test_pipelined_lm_matches_stream_solver_hbm():
