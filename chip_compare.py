@@ -27,7 +27,7 @@ it), and prints, tagged with the tree:
     2048x2048 GN 8x100 on engine="cuda", and the profiler's device busy
     share of the first (chip_smoke.profile_call); then 2048x2048 GN 8x100
     and volumetric ARAP 128^3 GN 8x100 through engine="auto" ("stream"
-    and "stream3d", pipelined).
+    and "stream3d", classic).
 Both trees must carry chip_smoke.py with those functions and the kernels'
 wrappers.
 Exits non-zero where torch sees no CUDA device.

@@ -57,10 +57,11 @@ Phases (any failure raises and the exit code is non-zero):
      bench.aux_volumetric's inputs, each with its own launch counts, its
      final cost against the JAX package's CPU value and its warm solve
      (best of 3):
-       GN through engine="auto"        -> "stream3d", pipelined (K6 + K7),
-       GN with stream_variant classic  -> "stream3d", classic (K6 + K2 hat),
-       LM through engine="auto"        -> "stream3d", pipelined (K6 + K7),
-     all with K8 for the outer step; and profile each of the three;
+       GN through engine="auto"          -> "stream3d", classic (K6 + K2 hat),
+       GN with stream_variant pipelined  -> "stream3d", pipelined (K6 + K7),
+       LM through engine="auto"          -> "stream3d", classic (K6 + K2 hat),
+       LM with stream_variant pipelined  -> "stream3d", pipelined (K6 + K7),
+     all with K8 for the outer step; and profile each of the four;
  11. hold the slice-4 kernels against their plain versions on arap's
      partials at the path's 102x102 triangulated mesh (10,404 vertices,
      61,610 edges) and on a 512x512 one (262,144 vertices, 1,568,770
@@ -133,7 +134,7 @@ Phases (any failure raises and the exit code is non-zero):
      single-card engine's, and a profile:
        2048x2048 GN 8x100, "stream" pipelined and classic (K15, K3),
        2048x2048 LM 8x100, "stream" (K15, K3),
-       128^3 GN 8x100, "stream3d" pipelined (K16, K8),
+       128^3 GN 8x100, "stream3d" classic and pipelined (K16, K8),
        256x256 GN 2x20, "halo" (the plain evaluator, against "torch");
  17. print {"kernels": [...]} (K1-K16: launches over the paths, agreement,
      times, and the bound: the least time the card could take for each
@@ -210,10 +211,12 @@ BIG_TIMING_REPS = 20
 VOL = 128
 VOL_OUTER, VOL_LINEAR = 8, 100
 VOL_PATHS = (
-    ("128^3 GN", "gaussNewtonGPU", None, "pipelined", 52.12877722531129),
-    ("128^3 GN classic", "gaussNewtonGPU", "classic", "classic",
+    ("128^3 GN", "gaussNewtonGPU", None, "classic", 52.12877722531129),
+    ("128^3 GN pipelined", "gaussNewtonGPU", "pipelined", "pipelined",
      52.12877722531129),
-    ("128^3 LM", "LMGPU", None, "pipelined", 52.1739656981525),
+    ("128^3 LM", "LMGPU", None, "classic", 52.1739656981525),
+    ("128^3 LM pipelined", "LMGPU", "pipelined", "pipelined",
+     52.1739656981525),
 )
 # the odd-sized volume of the slice-3 kernel checks: ragged 32x8 blocks
 SMALL_VOL = (37, 23, 11)
@@ -235,8 +238,11 @@ SHARD_PATHS = (
     ("2048 LM", "image_warping", "LMGPU", BIG, 8, 100, "stream", None,
      "classic", "stream", 2e-5, PATHS[1][-1]),
     ("128^3 GN", "volumetric_mesh_deformation", "gaussNewtonGPU", VOL, 8,
-     100, "stream3d", None, "pipelined", "stream3d", 5e-4,
+     100, "stream3d", None, "classic", "stream3d", 5e-4,
      VOL_PATHS[0][-1]),
+    ("128^3 GN pipelined", "volumetric_mesh_deformation", "gaussNewtonGPU",
+     VOL, 8, 100, "stream3d", "pipelined", "pipelined", "stream3d", 5e-4,
+     VOL_PATHS[1][-1]),
     ("256 GN halo", "image_warping", "gaussNewtonGPU", 256, 2, 20, "halo",
      None, None, "torch", 2e-5, None),
 )

@@ -22,17 +22,23 @@ from ops/stream_cuda.py:
              residual_reset_period iterations, r = b_hat - A_hat delta and
              w = A_hat r, one K6 each.
 
-Both run GN and LM; pick_variant3d takes pipelined, as
-stream3d._pick_variant3d does wherever the pipelined state fits (every
-volume this card holds at the sizes the port runs: the whole 128^3 state
-is under 1 GB).  Not ported: the TPU's (8, 128) padding and its
-real-domain mask, the VMEM and HBM budget models and the tile search, the
-strip-mined outer (ops/stream_outer.py).  The kernels work on the unpadded
-extents: K6 on csrc/vol_tile.cuh's shared-memory tile core, K7 reading its
-one-voxel halo in place.  The kernel wrappers run
-their plain torch versions (vol_hat_apply_plain, vol_pipelined_sweep_plain)
-for CPU tensors, so on a CPU plan engine="stream3d" runs both backends on
-the plain versions.
+Both run GN and LM.  stream_cuda.pick_variant gives volumes, like grids,
+the classic loop, unless variant= names pipelined.  The JAX package's
+StreamSolver3D takes pipelined wherever its state fits
+(stream3d.py:95-103), a TPU choice: one barrier an iteration.  On an H100
+at 128^3, 8 x 100, classic took 282-287 ms a GN solve against
+pipelined's 398-411, 375-393 ms against 498-504 in LM, and 605-653
+against 857-877 in GN over a mesh of 4 slabs, and ended nearer the
+float64 classic reference in x (GN 1.1e-4 against 2.9e-3, LM 1.6e-4
+against 2.6e-4; PERF.md).  An iteration's K6 and K2 move 612 MB in about
+273 us, where K7 moves 713 MB in 421.  Not ported: the TPU's (8, 128)
+padding and its real-domain mask, the VMEM and HBM budget models and the
+tile search, the strip-mined outer (ops/stream_outer.py).  The kernels
+work on the unpadded extents: K6 on csrc/vol_tile.cuh's shared-memory
+tile core, K7 reading its one-voxel halo in place.  The kernel wrappers
+run their plain torch versions (vol_hat_apply_plain,
+vol_pipelined_sweep_plain) for CPU tensors, so on a CPU plan
+engine="stream3d" runs both backends on the plain versions.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ import torch
 
 from ..runtime.trace import LAUNCHES, kernel
 from . import build
-from .stream_cuda import (check_two_buffers, check_variant, hat_pcg,
+from .stream_cuda import (check_two_buffers, hat_pcg, pick_variant,
                           sweep_partials, sweep_sums, sweep_update_plain)
 from .vol_cuda import VolOperator, shapes, vol_jtj_apply_plain
 
@@ -57,12 +63,6 @@ AUTO_STREAM3D_MIN_VOXELS = 64 ** 3
 def prefers_stream3d(plan):
     """True when engine="auto" sends this volume to "stream3d"."""
     return math.prod(plan.dims) >= AUTO_STREAM3D_MIN_VOXELS
-
-
-def pick_variant3d(variant=None):
-    """The backend a volume runs: pipelined for GN and LM, unless variant
-    names one."""
-    return "pipelined" if variant is None else check_variant(variant)
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +183,7 @@ class Stream3DOperator(VolOperator):
     def __init__(self, data, uses_lambda, variant=None):
         super().__init__(data)
         self.uses_lambda = uses_lambda
-        self.variant = pick_variant3d(variant)
+        self.variant = pick_variant(variant)
 
     def pcg_backend(self, sq, scs, b_hat, sp):
         lm = self.uses_lambda

@@ -54,7 +54,8 @@ StreamSolver's, whose outer step runs on WarpOperator's K3 or on the plan's
 evaluator.
 
 GN and LM both run the classic loop unless variant= picks the pipelined
-one (stream_solver.py:725-760 gives GN pipelined).  On image_warping's hat
+one (stream_solver.py:725-760 gives GN pipelined), here and on volumes
+(ops/stream3d_cuda.py).  On image_warping's hat
 system the float32 pipelined recurrences drift from the residual they
 stand for: at 2048^2, 8 x 400 on an NVIDIA H100 GN's final cost parted
 from the float64 reference's by 28 to 4.6e6 times its value, where the
@@ -105,8 +106,8 @@ def prefers_stream(plan):
 
 
 def pick_variant(variant=None):
-    """The backend a 2-D plan runs, on one card or over a mesh: classic
-    for GN and LM, unless variant names one."""
+    """The backend a grid or a volume runs, on one card or over a mesh:
+    classic for GN and LM, unless variant names one."""
     return "classic" if variant is None else check_variant(variant)
 
 

@@ -41,7 +41,6 @@ import torch
 
 from .. import energies
 from ..ops import slab_cuda
-from ..ops.stream3d_cuda import pick_variant3d
 from ..ops.stream_cuda import pick_variant
 from ..solver.core import _safe_div
 from .halo import has_sampled, slab_rows, stencil_radius
@@ -97,9 +96,9 @@ class _SlabStream:
         self.dot = layout.dot
         self.uses_lambda = plan.config.uses_lambda
         # the LM loop is always classic (stream_shard.py:370-372); GN's is
-        # the single-card engine's choice
+        # the single-card engines' choice
         self.variant = ("classic" if self.uses_lambda else
-                        self._pick_variant(plan.stream_variant))
+                        pick_variant(plan.stream_variant))
         self.he = max(2 * stencil_radius(plan.spec), 1)
         n = slab_rows(plan, mesh, self.he)
         total = n * mesh.n
@@ -149,7 +148,6 @@ class ShardedStreamEngine(_SlabStream):
     mode and K15."""
 
     _supports = staticmethod(supports)
-    _pick_variant = staticmethod(pick_variant)
     _energy = "energies.image_warping"
     _consts = ("UrShape", "Constraints", "Mask")
 
@@ -179,7 +177,6 @@ class ShardedStream3D(_SlabStream):
     offset mode and K16.  The energy excludes nothing."""
 
     _supports = staticmethod(supports3d)
-    _pick_variant = staticmethod(pick_variant3d)
     _energy = "energies.volumetric_mesh_deformation"
     _consts = ("UrShape", "Constraints")
 

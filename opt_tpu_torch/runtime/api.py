@@ -193,8 +193,7 @@ class Plan:
             self.config, state.dtype, self.funcs.use_preconditioner)
         self.solver_params = dict(SOLVER_PARAMETER_DEFAULTS)
         # the streamed engines' PCG backend: None picks classic for GN and
-        # LM on 2-D grids (stream_cuda.pick_variant), and pipelined for
-        # both on volumes (stream3d_cuda.pick_variant3d)
+        # LM on grids and volumes (stream_cuda.pick_variant)
         self.stream_variant = None
         self.engine = None  # the engine of the last init() or solve()
         self.variant = None  # and its stream backend, if it ran one

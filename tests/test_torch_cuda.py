@@ -350,13 +350,8 @@ def _vol_plan(kind, dims, n_outer=3, n_linear=30):
     return plan
 
 
-@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
-def test_stream3d_backends_agree_on_the_card(dev, kind):
-    """The pipelined and classic 3-D backends against each other (LM with
-    three residual resets in each PCG solve), and repeated solves bit for
-    bit: no float atomics in any kernel."""
-    W, H, D = 40, 20, 12
-    plan = _vol_plan(kind, (W, H, D))
+def _pulled_volume(W, H, D):
+    """A grid pinned on its H = 0 face and pulled on its H = H - 1 face."""
     dd, hh, ww = np.meshgrid(np.arange(D), np.arange(H), np.arange(W),
                              indexing="ij")
     grid = np.stack([dd, hh, ww], axis=-1).astype(np.float32)
@@ -364,11 +359,22 @@ def test_stream3d_backends_agree_on_the_card(dev, kind):
     cons[:, 0] = grid[:, 0]
     cons[:, -1] = grid[:, -1] + np.array([2.0, -2.0, 1.0], np.float32)
     rng = np.random.RandomState(7)
-    inputs = {"Offset": grid + 0.01 * rng.randn(*grid.shape).astype(
-                  np.float32),
-              "Angle": (0.1 * rng.randn(*grid.shape)).astype(np.float32),
-              "UrShape": grid, "Constraints": cons,
-              "w_fitSqrt": 1.0, "w_regSqrt": np.sqrt(0.05)}
+    return {"Offset": grid + 0.01 * rng.randn(*grid.shape).astype(
+                np.float32),
+            "Angle": (0.1 * rng.randn(*grid.shape)).astype(np.float32),
+            "UrShape": grid, "Constraints": cons,
+            "w_fitSqrt": 1.0, "w_regSqrt": np.sqrt(0.05)}
+
+
+@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
+def test_stream3d_backends_agree_on_the_card(dev, kind):
+    """The pipelined and classic 3-D backends against each other (LM with
+    three residual resets in each PCG solve), and repeated solves bit for
+    bit: no float atomics in any kernel."""
+    W, H, D = 40, 20, 12
+    plan = _vol_plan(kind, (W, H, D))
+    inputs = _pulled_volume(W, H, D)
+    plan.stream_variant = "pipelined"
     cost = plan.solve(inputs, engine="stream3d")
     assert plan.variant == "pipelined"
     assert np.isfinite(cost)
@@ -380,6 +386,19 @@ def test_stream3d_backends_agree_on_the_card(dev, kind):
     assert plan.solve(inputs, engine="stream3d") == classic
 
 
+def test_stream3d_gn_runs_the_classic_loop_on_the_card(dev):
+    """GN on "stream3d" with no variant asked runs the classic loop: one
+    K6 and one K2 an iteration, K8 for the outer steps, and no K7."""
+    plan = _vol_plan("gaussNewtonGPU", (40, 20, 12), 2, 10)
+    before = dict(LAUNCHES)
+    cost = plan.solve(_pulled_volume(40, 20, 12), engine="stream3d")
+    assert (plan.engine, plan.variant) == ("stream3d", "classic")
+    assert np.isfinite(cost)
+    want = {"K6.vol_hat_apply": 20, "K2.pcg_update": 20,
+            "K8.vol_linearize": 5, "K7.vol_pipelined_sweep": 0}
+    assert {k: LAUNCHES[k] - before[k] for k in want} == want
+
+
 def test_stream3d_launch_failure_raises_with_no_fallback(dev):
     """A volume of more D planes than a grid's z extent (65,535) makes K7
     fail to launch: it raises out of Plan.solve (after K8's outer step and
@@ -389,6 +408,7 @@ def test_stream3d_launch_failure_raises_with_no_fallback(dev):
     chunks and raises from its wrapper."""
     D = 70000
     plan = _vol_plan("gaussNewtonGPU", (1, 1, D), 1, 2)
+    plan.stream_variant = "pipelined"
     rng = np.random.RandomState(0)
     shape = (D, 1, 1, 3)
     inputs = {"Offset": rng.randn(*shape).astype(np.float32),

@@ -8,8 +8,10 @@ are held at rtol 1e-4 on the final cost, the bound for re-associated inner
 loops (opt_tpu/ops/stream_solver.py:25-28), and at rtol 1e-3, atol 1e-4
 on the unknowns.
 
-Also: engine="auto" and the variant pick against the JAX package's, and a
-kernel that fails on launch raising through Plan.solve with no fallback."""
+Also: engine="auto" against the JAX package's route, the port's own
+variant pick (classic, where the JAX package picks pipelined) and its
+solves against the pipelined loop's, and a kernel that fails on launch
+raising through Plan.solve with no fallback."""
 
 import ctypes
 
@@ -116,19 +118,42 @@ def test_auto_route_matches_jax(kind):
 
 @pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
 def test_variant_pick_matches_jax(kind):
-    """pipelined for GN and LM at 128^3, as StreamSolver3D picks there;
-    Plan.stream_variant names the other."""
+    """The port's own pick at 128^3: classic for GN and LM, where
+    StreamSolver3D picks pipelined.  The JAX package's choice is a TPU
+    finding (one barrier an iteration); on an H100 the classic loop's K6 +
+    K2 iteration beats K7's pipelined sweep by 23-29% a solve and ends
+    nearer the float64 reference (PERF.md).  Plan.stream_variant names
+    pipelined; any other name raises."""
     jplan, tplan = make_plans(kind, (128, 128, 128), ())
-    want = s3d._pick_variant3d(jplan)
-    assert stream3d_cuda.pick_variant3d() == want == "pipelined"
+    assert s3d._pick_variant3d(jplan) == "pipelined"
     data = bound_data()
-    op = stream3d_cuda.Stream3DOperator(data, tplan.config.uses_lambda)
-    assert op.variant == want
-    op = stream3d_cuda.Stream3DOperator(data, tplan.config.uses_lambda,
-                                        "classic")
-    assert op.variant == "classic"
+    lm = tplan.config.uses_lambda
+    assert stream3d_cuda.Stream3DOperator(data, lm).variant == "classic"
+    op = stream3d_cuda.Stream3DOperator(data, lm, "pipelined")
+    assert op.variant == "pipelined"
     with pytest.raises(ValueError, match="variant"):
-        stream3d_cuda.pick_variant3d("fancy")
+        stream3d_cuda.Stream3DOperator(data, lm, "fancy")
+
+
+@pytest.mark.parametrize("kind", ["gaussNewtonGPU", "LMGPU"])
+def test_stream3d_takes_classic_unless_asked(kind):
+    """engine="stream3d" with no variant asked runs the classic loop and
+    ends where the pipelined loop, asked for by name, ends: rtol 1e-4 on
+    the final cost, rtol 1e-3, atol 1e-4 on the unknowns."""
+    inputs = vol_inputs(W, H, D)
+    _, tplan = make_plans(kind, (W, H, D))
+    cost = tplan.solve(inputs, engine="stream3d")
+    assert (tplan.engine, tplan.variant) == ("stream3d", "classic")
+    _, pplan = make_plans(kind, (W, H, D))
+    pplan.stream_variant = "pipelined"
+    want = pplan.solve(inputs, engine="stream3d")
+    assert pplan.variant == "pipelined"
+    assert np.isfinite(cost)
+    assert cost == pytest.approx(want, rel=1e-4)
+    want_x = pplan.unknowns()
+    for n, arr in tplan.unknowns().items():
+        np.testing.assert_allclose(arr, want_x[n], rtol=1e-3, atol=1e-4,
+                                   err_msg=n)
 
 
 def bound_data():
@@ -156,8 +181,9 @@ class _OneFailing(_FailingLibrary):
     ("opt_vol_pipelined_sweep", "LMGPU"),
 ])
 def test_failed_launch_raises_with_no_fallback(monkeypatch, failing, kind):
-    """K8, K6 or K7 failing on launch raises out of Plan.solve: no engine
-    catches it and carries on with another."""
+    """K8, K6 or K7 (the pipelined loop's, asked for by name) failing on
+    launch raises out of Plan.solve: no engine catches it and carries on
+    with another."""
     lib = _OneFailing(failing)
     monkeypatch.setattr(build, "_lib", lib)
     monkeypatch.setattr(build, "library", lambda: lib)
@@ -165,6 +191,8 @@ def test_failed_launch_raises_with_no_fallback(monkeypatch, failing, kind):
     monkeypatch.setattr(build, "check_tensors", lambda *a, **k: None)
     monkeypatch.setattr(build, "stream", lambda: ctypes.c_void_p(0))
     _, tplan = make_plans(kind, (6, 5, 4))
+    if failing == "opt_vol_pipelined_sweep":
+        tplan.stream_variant = "pipelined"
     name = failing[len("opt_"):]
     with pytest.raises(RuntimeError, match=f"{name}: CUDA error 719"):
         tplan.solve(vol_inputs(6, 5, 4), engine="stream3d")
