@@ -1616,7 +1616,8 @@ def expected_launches_graph(kind, n_outer, n_linear, period=10):
 def expected_slab_applies(variant, lm, n_outer, n_linear, period=10):
     """K15 or K16 launches in one sharded solve: per outer step the
     pipelined w_0 and one apply an iteration, or one an iteration and, in
-    LM, one more at each reset (parallel/stream_shard.py's loops)."""
+    LM, one more at each reset (solver/hat_pcg.py's loops on
+    parallel/stream_shard.py's engines)."""
     if lm:
         return n_outer * (n_linear + n_linear // period)
     return n_outer * (n_linear + (variant == "pipelined"))

@@ -20,7 +20,7 @@ funcs.leaf_partials, and the inner PCG applies
     J p   = sum_a D_a * gather_slot(a)(p)[unk(a)]
     J^T v = sum_a scatter_slot(a)(D_a * v)   into unk(a)
 
-in the hat space (ops/stream_cuda.py): classic_pcg with K11 as its apply
+in the hat space (solver/hat_pcg.py): classic_pcg with K11 as its apply
 and K2's hat mode as its update, GN and LM, as GraphPcgKernel.solve runs
 its classic loop.  K11 is two kernels behind one C entry: an edge pass (a
 thread per edge: the tangent once, then each leaf's c_a = D_a^T t, written
@@ -53,8 +53,9 @@ from torch.func import vjp as _vjp
 
 from ..dsl import expr as E
 from ..runtime.trace import LAUNCHES, kernel
+from ..solver.hat_pcg import classic_pcg
 from . import build
-from .stream_cuda import classic_pcg
+from .pcg_update import pcg_update
 
 # K11's static limits, as csrc/graph_kernels.cu sizes its shared memory,
 # its per-thread tangent and its edge pass's argument (kMaxUnk, kMaxRes,
@@ -660,4 +661,5 @@ class GraphOperator:
         def hat_apply(r, p_prev=None, beta=None):
             return graph_hat_apply(t, sq, scs, r, p_prev, beta)
 
-        return classic_pcg(hat_apply, b_hat, sp, self.uses_lambda)
+        return classic_pcg(hat_apply, pcg_update, torch.dot, b_hat, sp,
+                           self.uses_lambda)

@@ -27,7 +27,7 @@ from ..compile import plan_fns
 from ..compile.evaluate import shift_read
 from ..dsl.env import EnergyEnv
 from ..dsl.spec import ProblemSpec
-from ..solver.core import _safe_div
+from ..solver.core import safe_div
 from ..runtime.trace import LAUNCHES, kernel
 from . import build
 
@@ -82,11 +82,11 @@ def poisson_cg_plain(b_chw, keep_hw, n_iters):
     delta = torch.zeros_like(b_chw)
     for _ in range(n_iters):
         ap = poisson_apply_plain(p, keep_hw)
-        alpha = _safe_div(an, sums(p * ap))
+        alpha = safe_div(an, sums(p * ap))
         delta = delta + alpha * p
         r = r - alpha * ap
         bn = sums(r * r)
-        p = r + _safe_div(bn, an) * p
+        p = r + safe_div(bn, an) * p
         an = bn
     return delta
 

@@ -6,8 +6,8 @@ The JAX package runs a volume of 64^3 voxels or more through two streamed
 Pallas kernels behind solver/core's pcg_backend seam, with the outer step
 (here K8, ops/vol_cuda.py) around them.  The hat space is the 2-D
 streamed engine's, A_hat = S (J^T J [+ CtC]) S with S = diag(sq)
-(stream3d.py:51-54), and so are the two PCG loops, which this engine takes
-from ops/stream_cuda.py:
+(stream3d.py:51-54), and so are the two PCG loops, solver/hat_pcg.py's,
+here on these kernels:
 
   classic    (row 7, StreamSolver3D._build_classic_kernel) per iteration
              K6 vol_hat_apply   p = r + beta p_prev, A_hat p, <p, A_hat p>
@@ -48,9 +48,11 @@ import math
 import torch
 
 from ..runtime.trace import LAUNCHES, kernel
+from ..solver.hat_pcg import hat_pcg
 from . import build
-from .stream_cuda import (check_two_buffers, hat_pcg, pick_variant,
-                          sweep_partials, sweep_sums, sweep_update_plain)
+from .pcg_update import pcg_update
+from .stream_cuda import (check_two_buffers, pick_variant, sweep_partials,
+                          sweep_sums, sweep_update_plain)
 from .vol_cuda import VolOperator, shapes, vol_jtj_apply_plain
 
 # engine="auto" routes volumetric ARAP here from this many voxels: the JAX
@@ -177,8 +179,8 @@ def vol_pipelined_sweep(x, ur, cons, params, sq, scs, w_in, w_out, z, s, p,
 
 class Stream3DOperator(VolOperator):
     """VolOperator (cost, outer, model_cost on K8) whose inner PCG solve is
-    one of the two hat-space backends, given to the solver as
-    pcg_backend."""
+    one of the two hat-space loops (solver/hat_pcg.py) on K6 with K2 or on
+    K7, given to the solver as pcg_backend."""
 
     def __init__(self, data, uses_lambda, variant=None):
         super().__init__(data)
@@ -196,4 +198,5 @@ class Stream3DOperator(VolOperator):
             return vol_pipelined_sweep(*consts, *state,
                                        b_hat=b_hat if lm else None)
 
-        return hat_pcg(self.variant, hat_apply, sweep, b_hat, sp, lm)
+        return hat_pcg(self.variant, hat_apply, pcg_update, sweep, torch.dot,
+                       b_hat, sp, lm)

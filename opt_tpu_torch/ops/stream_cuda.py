@@ -1,36 +1,25 @@
 """The streamed engine for large image_warping grids: the inner PCG solve
 in the Jacobi-scaled ("hat") space on hand-written CUDA kernels (port of
-opt_tpu/ops/stream_solver.py StreamSolverHBM), and the two hat-space PCG
-loops that this engine and the volumes' (ops/stream3d_cuda.py) share.
+opt_tpu/ops/stream_solver.py StreamSolverHBM).
 
 Past the sizes where the whole grid's solve stays on chip, the JAX package
 runs the inner PCG of each outer step as one of two streamed Pallas
 kernels behind solver/core's pcg_backend seam; the outer step (J^T F,
-diag, cost, LM's trust region) stays in the solver.  In the hat space
-A_hat = S (J^T J [+ CtC]) S, S = diag(sq), sq = sqrt(pre), the
-preconditioner is the identity, so z == r; excluded unknowns have sq = 0,
-which is their masking (stream_solver.py:17-28).  The solver hands the
-backend sq, scs = sq^2 ctc (LM; None for GN) and b_hat = sq b and gets
-d_hat back, with delta = sq d_hat.  The two backends (classic_pcg and
-pipelined_pcg below), over an energy's hat apply and pipelined sweep:
+diag, cost, LM's trust region) stays in the solver.  The two hat-space
+loops are solver/hat_pcg.py's, here on these kernels:
 
   classic    (row 4, StreamSolverHBM._build_backend_kernel) per iteration
              K4 warp_hat_apply  p = r + beta p_prev, A_hat p, <p, A_hat p>
              K2 pcg_update      hat mode: delta += alpha p, r -= alpha Ap,
                                 <r, r>, LM's q = 0.5 <delta, r + b_hat>
              and, in LM, every residual_reset_period iterations one more
-             K4 on delta for the exact reset r = b_hat - A_hat delta, and
-             the Q/zeta exit, predicated as in solver/core.py;
+             K4 on delta for the exact reset r = b_hat - A_hat delta;
   pipelined  (row 5, StreamSolverHBM._build_pipelined_kernel) one K4 for
              w_0 = A_hat r_0, then per iteration one
-             K5 warp_pipelined_sweep  n = A_hat w and the hat-space
-             Ghysels-Vanroose recurrences (u = r, q = s, m = w), with the
-             next gamma = <r, r> and dd = <w, r> (and LM's q); alpha and
-             beta come from those as 0-d device tensors (solver/core.py
-             pcg_pipelined).  LM adds the Q/zeta exit, predicated as delta
-             frozen by alpha = 0, and every residual_reset_period
-             iterations the residual replacement r = b_hat - A_hat delta,
-             w = A_hat r, one K4 each (stream_solver.py:1216-1700).
+             K5 warp_pipelined_sweep  n = A_hat w and the recurrences,
+             with the next <r, r> and <w, r> (and LM's q); in LM, every
+             residual_reset_period iterations, r = b_hat - A_hat delta and
+             w = A_hat r, one K4 each.
 
 The resident-state solver (row 3, StreamSolver._build_kernel) is the
 third hat-space backend: one launch per outer step of
@@ -75,10 +64,11 @@ import torch
 
 from .. import energies
 from ..compile import plan_fns
-from ..solver.core import SolverConfig, _safe_div, make_solver
+from ..solver.core import SolverConfig, make_solver
+from ..solver.hat_pcg import classic_pcg, hat_pcg
 from ..runtime.trace import LAUNCHES, kernel
 from . import build
-from .pcg_update import pcg_update
+from .pcg_update import pcg_update, pcg_update_plain
 from .poisson_cuda import is_poisson, poisson_jtj_plain
 from .warp_cuda import (WarpOperator, _flat_keep, _shapes,
                         warp_jtj_apply_plain)
@@ -139,19 +129,20 @@ def warp_hat_apply_plain(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
 
 
 def sweep_update_plain(n, w_in, w_out, z, s, p, delta, r, alpha, beta,
-                       b_hat=None):
+                       b_hat=None, dot=torch.dot):
     """The pipelined sweep's recurrences, in place, given n = A_hat w_in:
     z = n + beta z, s = w + beta s, p = r + beta p, delta += alpha p,
     r -= alpha s, w_out = w - alpha z.  Returns (<r, r>, <w_out, r>, q),
-    q = 0.5 <delta, r + b_hat> given b_hat (LM), else None."""
-    z.copy_(n + beta * z)
-    s.copy_(w_in + beta * s)
-    p.copy_(r + beta * p)
-    delta.copy_(delta + alpha * p)
-    r.copy_(r - alpha * s)
-    w_out.copy_(w_in - alpha * z)
-    q = None if b_hat is None else 0.5 * torch.dot(delta, r + b_hat)
-    return torch.dot(r, r), torch.dot(w_out, r), q
+    q = 0.5 <delta, r + b_hat> given b_hat (LM), else None.  dot takes the
+    sums (a sharded operator's sums over the mesh)."""
+    z.mul_(beta).add_(n)
+    s.mul_(beta).add_(w_in)
+    p.mul_(beta).add_(r)
+    delta.add_(alpha * p)
+    r.sub_(alpha * s)
+    torch.sub(w_in, alpha * z, out=w_out)
+    q = None if b_hat is None else 0.5 * dot(delta, r + b_hat)
+    return dot(r, r), dot(w_out, r), q
 
 
 def warp_pipelined_sweep_plain(x, ur, cons, mask, params, sq, scs, w_in,
@@ -260,105 +251,6 @@ def sweep_sums(g_parts, d_parts, q_parts):
             None if q_parts is None else torch.sum(q_parts))
 
 
-
-
-# ---------------------------------------------------------------------------
-# the two hat-space PCG loops, shared with ops/stream3d_cuda.py
-# ---------------------------------------------------------------------------
-
-
-def classic_pcg(hat_apply, b_hat, sp, lm):
-    """Classic PCG on A_hat d_hat = b_hat (stream_solver.py:763-1200,
-    stream3d.py:842-1299): the hat apply with the beta step fused, then K2
-    in hat mode; LM adds the periodic exact reset and the Q/zeta exit.
-
-    hat_apply(r, p_prev=None, beta=None) -> (p, A_hat p, <p, A_hat p>),
-    p = r + beta p_prev (r itself without p_prev)."""
-    period = int(sp["residual_reset_period"])
-    q_tol = float(sp["q_tolerance"])
-    delta = torch.zeros_like(b_hat)
-    r = b_hat
-    p = torch.zeros_like(b_hat)  # beta = 0 at it 0 reads it: not garbage
-    an = torch.dot(b_hat, b_hat)
-    beta = torch.zeros_like(an)
-    Q0 = torch.zeros_like(an)
-    brk = torch.zeros((), dtype=torch.bool, device=an.device)
-    for it in range(int(sp["lIterations"])):
-        p, ap, pap = hat_apply(r, p, beta)
-        alpha = _safe_div(an, pap)
-        if lm:  # after the zeta exit alpha = 0 leaves delta as it was
-            alpha = torch.where(brk, 0.0, alpha)
-        delta, r, _, bn, q = pcg_update(alpha, p, ap, delta, r, None,
-                                        b_hat if lm else None)
-        if lm and (it + 1) % period == 0:
-            # r = b_hat - A_hat delta, exactly (stream_solver.py:1118)
-            r = b_hat - hat_apply(delta)[1]
-            bn = torch.dot(r, r)
-            q = 0.5 * torch.dot(delta, r + b_hat)
-        beta = _safe_div(bn, an)
-        an = bn
-        if lm:
-            zeta = (it + 1) * _safe_div(q - Q0, q)
-            brk = brk | (zeta < q_tol)
-            Q0 = q
-    return delta
-
-
-def pipelined_pcg(hat_apply, sweep, b_hat, sp, lm):
-    """Pipelined PCG on A_hat d_hat = b_hat (stream_solver.py:1216-1700,
-    stream3d.py:407-824): one hat apply for w_0, then one sweep per
-    iteration.  LM adds the Q/zeta exit (alpha = 0 from then on freezes
-    delta, as the JAX while loop's stop does) and, every
-    residual_reset_period iterations, the residual replacement
-    r = b_hat - A_hat delta, w = A_hat r (stream3d.py:776-793).
-
-    sweep(w_in, w_out, z, s, p, delta, r, alpha, beta) runs one sweep in
-    place and returns (<r, r>, <w_out, r>, q), q = 0.5 <delta, r + b_hat>
-    in LM."""
-    period = int(sp["residual_reset_period"])
-    q_tol = float(sp["q_tolerance"])
-    r = b_hat.clone()  # the sweeps update r in place
-    z, s, p, delta = (torch.zeros_like(b_hat) for _ in range(4))
-    gamma = torch.dot(b_hat, b_hat)
-    _, w, dd = hat_apply(r)
-    w_next = torch.empty_like(w)
-    zero = torch.zeros_like(gamma)
-    Q0 = zero
-    brk = torch.zeros((), dtype=torch.bool, device=gamma.device)
-    gamma_prev = alpha_prev = None
-    for it in range(int(sp["lIterations"])):
-        if it == 0:
-            beta = zero
-            alpha = _safe_div(gamma, dd)
-        else:
-            beta = _safe_div(gamma, gamma_prev)
-            alpha = _safe_div(gamma,
-                              dd - beta * _safe_div(gamma, alpha_prev))
-        if lm:
-            alpha = torch.where(brk, 0.0, alpha)
-        g2, dd2, q = sweep(w, w_next, z, s, p, delta, r, alpha, beta)
-        w, w_next = w_next, w
-        if lm and (it + 1) % period == 0:
-            r = b_hat - hat_apply(delta)[1]
-            _, w, dd2 = hat_apply(r)
-            g2 = torch.dot(r, r)
-            q = 0.5 * torch.dot(delta, r + b_hat)
-        if lm:
-            zeta = (it + 1) * _safe_div(q - Q0, q)
-            brk = brk | (zeta < q_tol)
-            Q0 = q
-        gamma_prev, alpha_prev = gamma, alpha
-        gamma, dd = g2, dd2
-    return delta
-
-
-def hat_pcg(variant, hat_apply, sweep, b_hat, sp, lm):
-    """d_hat from the named backend."""
-    if variant == "classic":
-        return classic_pcg(hat_apply, b_hat, sp, lm)
-    return pipelined_pcg(hat_apply, sweep, b_hat, sp, lm)
-
-
 # ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
@@ -366,8 +258,8 @@ def hat_pcg(variant, hat_apply, sweep, b_hat, sp, lm):
 
 class StreamOperator(WarpOperator):
     """WarpOperator (cost, outer, mask, model_cost on K1/K3) whose inner
-    PCG solve is one of the two hat-space backends, given to the solver as
-    pcg_backend."""
+    PCG solve is one of the two hat-space loops (solver/hat_pcg.py) on K4
+    with K2 or on K5, given to the solver as pcg_backend."""
 
     def __init__(self, data, uses_lambda, variant=None):
         super().__init__(data)
@@ -386,7 +278,8 @@ class StreamOperator(WarpOperator):
             return warp_pipelined_sweep(*consts, *state,
                                         b_hat=b_hat if lm else None)
 
-        return hat_pcg(self.variant, hat_apply, sweep, b_hat, sp, lm)
+        return hat_pcg(self.variant, hat_apply, pcg_update, sweep, torch.dot,
+                       b_hat, sp, lm)
 
 
 # ---------------------------------------------------------------------------
@@ -524,58 +417,28 @@ class PoissonHat:
 
 
 def resident_pcg_plain(hat, sq, b_hat, n_iters):
-    """StreamSolver's kernel body (stream_solver.py:424-550) in torch:
-    n_iters of classic PCG on A_hat d = b_hat from r = p = b_hat, with
-    alpha = an / <p, A_hat p> where that is not 0 and beta = bn / an where
-    an is not 0, no early exit.  Returns d_hat."""
-    delta = torch.zeros_like(b_hat)
-    r = p = b_hat
-    an = torch.dot(r, r)
-    for _ in range(n_iters):
-        ap = hat.apply_plain(sq, p)
-        alpha = _safe_div(an, torch.dot(p, ap))
-        delta = delta + alpha * p
-        r = r - alpha * ap
-        bn = torch.dot(r, r)
-        p = r + _safe_div(bn, an) * p
-        an = bn
-    return delta
+    """K13's loop in torch (StreamSolver's kernel body,
+    stream_solver.py:424-550): n_iters of solver/hat_pcg.py's classic loop
+    on hat.apply_plain, GN, no early exit, in K13's phase order (p = r +
+    beta p_prev formed where the apply reads it, from p_prev = 0 and
+    beta = 0).  Returns d_hat."""
 
-
-def resident_pcg_phases_plain(hat, sq, b_hat, n_iters):
-    """resident_pcg_plain in K13's two phases (csrc/resident_pcg.cuh):
-    p = r + beta p_prev formed where the apply reads it, from beta = 0 and
-    p_prev = 0, then A_hat p and <p, A_hat p>; then the updates, <r, r>
-    and the next beta.  The same arithmetic in another order: it matches
-    resident_pcg_plain bit for bit."""
-    delta = torch.zeros_like(b_hat)
-    r = b_hat
-    p_prev = torch.zeros_like(b_hat)
-    an = torch.dot(r, r)
-    beta = torch.zeros_like(an)
-    for _ in range(n_iters):
-        # phase 1
+    def apply(r, p_prev, beta):
         p = r + beta * p_prev
         ap = hat.apply_plain(sq, p)
-        alpha = _safe_div(an, torch.dot(p, ap))
-        # phase 2
-        delta = delta + alpha * p
-        r = r - alpha * ap
-        bn = torch.dot(r, r)
-        beta = _safe_div(bn, an)
-        an = bn
-        p_prev = p
-    return delta
+        return p, ap, torch.dot(p, ap)
+
+    return classic_pcg(apply, pcg_update_plain, torch.dot, b_hat,
+                       {"lIterations": n_iters}, lm=False)
 
 
 @kernel("K13.resident_pcg")
 def resident_pcg(hat, sq, b_hat, n_iters):
     """K13: d_hat after n_iters of PCG in the hat space (hat: WarpHat or
     PoissonHat) -- one cooperative launch on CUDA, of the form the card
-    holds for the grid (hat.form), plain (in the kernel's phase order) on
-    CPU."""
+    holds for the grid (hat.form), plain (resident_pcg_plain) on CPU."""
     if build.all_on_cpu(sq, b_hat, *hat.operands.values()):
-        return resident_pcg_phases_plain(hat, sq, b_hat, n_iters)
+        return resident_pcg_plain(hat, sq, b_hat, n_iters)
     n = b_hat.numel()
     build.check_tensors("resident_pcg", {**hat.shapes(), "sq": (n,),
                                          "b_hat": (n,)},

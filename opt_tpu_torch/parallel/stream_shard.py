@@ -14,8 +14,11 @@ each slab owns a contiguous block of rows (D planes of a volume), and
 * the operands x, the constants and sq are extended once per outer step
   (stream_shard.py:297-304); p is extended before every apply (the mesh's
   ext: a device copy in the slab form, send/recv in the group form);
-* the PCG scalars are global sums of the slabs' partials (the mesh's
-  psum), and the vector updates are plain torch;
+* the inner PCG is solver/hat_pcg.py's loop, the one the single-card
+  engines run: its sums are global sums of the slabs' partials (the mesh's
+  psum), and its updates and sweeps the plain torch versions of K2 and of
+  the sweep's recurrences (pcg_update_plain, stream_cuda.sweep_update_plain)
+  on those sums;
 * LM's hat-space diagonal scs = S^2 ctc is purely local, so it is added
   outside the kernel; the LM loop is always the classic one with the Q/zeta
   exit and the exact residual every residual_reset_period iterations
@@ -29,20 +32,19 @@ emitter exists (ROADMAP.md queue A item 6): image_warping ("stream") and
 volumetric ARAP ("stream3d"), f32.  The JAX package's lane and sublane
 rules (stream_shard.py:88-93, :521-527) are TPU scaffolding and are not
 ported; so is its tile search (a CUDA thread per pixel needs none).
-
-The loops run a fixed number of iterations: what depends on the counter
-(the first pipelined iteration, the reset) the host decides, and LM's zeta
-exit freezes delta by alpha = 0, as solver/core.py does.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from .. import energies
 from ..ops import slab_cuda
-from ..ops.stream_cuda import pick_variant
-from ..solver.core import _safe_div
+from ..ops.pcg_update import pcg_update_plain
+from ..ops.stream_cuda import pick_variant, sweep_update_plain
+from ..solver.hat_pcg import hat_pcg
 from .halo import has_sampled, slab_rows, stencil_radius
 
 
@@ -139,8 +141,17 @@ class _SlabStream:
             ap = self._apply(sq_slabs, self._slabs(p))
             return ap if scs is None else ap + scs * p
 
-        return shard_pcg(self.variant, A, self.dot, b_hat, sp,
-                         self.uses_lambda)
+        def hat_apply(r, p_prev=None, beta=None):
+            p = r if p_prev is None else r + beta * p_prev
+            ap = A(p)
+            return p, ap, self.dot(p, ap)
+
+        def sweep(w_in, *state):  # GN only: LM runs the classic loop
+            return sweep_update_plain(A(w_in), w_in, *state, dot=self.dot)
+
+        update = functools.partial(pcg_update_plain, dot=self.dot)
+        return hat_pcg(self.variant, hat_apply, update, sweep, self.dot,
+                       b_hat, sp, self.uses_lambda)
 
 
 class ShardedStreamEngine(_SlabStream):
@@ -193,82 +204,4 @@ class ShardedStream3D(_SlabStream):
     def _apply(self, sq, p):
         return slab_cuda.vol_slab_apply(self._x, *self.consts, self.params,
                                         sq, p, self.geom)
-
-
-def shard_pcg(variant, A, dot, b_hat, sp, lm):
-    """The slab-level hat-space PCG loops of both engines
-    (stream_shard.py:352-442): 'pipelined' (Ghysels & Vanroose with M = I:
-    both dots read only the previous iteration's vectors) or 'classic';
-    lm switches to _shard_pcg_lm.  dot is the global <a, b>."""
-    L = int(sp["lIterations"])
-    if lm:
-        return _shard_pcg_lm(A, dot, b_hat, L,
-                             int(sp["residual_reset_period"]),
-                             float(sp["q_tolerance"]))
-    r = b_hat
-    delta = torch.zeros_like(r)
-    if variant == "pipelined":
-        # M = I collapses u = r, q = s, m = w of solver/core.pcg_pipelined
-        w = A(r)
-        z = s = p = torch.zeros_like(r)
-        gamma_prev = alpha_prev = None
-        for i in range(L):
-            gamma = dot(r, r)
-            dd = dot(w, r)
-            n = A(w)
-            if i == 0:
-                beta = 0.0
-                alpha = _safe_div(gamma, dd)
-            else:
-                beta = _safe_div(gamma, gamma_prev)
-                alpha = _safe_div(gamma,
-                                  dd - beta * _safe_div(gamma, alpha_prev))
-            z = n + beta * z
-            s = w + beta * s
-            p = r + beta * p
-            delta = delta + alpha * p
-            r = r - alpha * s
-            w = w - alpha * z
-            gamma_prev, alpha_prev = gamma, alpha
-        return delta
-    p = r
-    an = dot(r, r)
-    for _ in range(L):
-        Ap = A(p)
-        alpha = _safe_div(an, dot(p, Ap))
-        delta = delta + alpha * p
-        r = r - alpha * Ap
-        bn = dot(r, r)
-        p = r + _safe_div(bn, an) * p
-        an = bn
-    return delta
-
-
-def _shard_pcg_lm(A, dot, b_hat, L, period, q_tol):
-    """Classic hat-space PCG with LM's Q/zeta exit and the exact residual
-    r = b - A delta every `period` iterations (stream_shard.py:445-489).
-    A includes the scs diagonal.  The JAX while loop stops after the
-    iteration that sets brk; here alpha = 0 from then on leaves delta as
-    it was."""
-    r = p = b_hat
-    an = dot(r, r)
-    delta = torch.zeros_like(r)
-    Q0 = torch.zeros_like(an)
-    brk = torch.zeros((), dtype=torch.bool, device=an.device)
-    for i in range(L):
-        Ap = A(p)
-        alpha = torch.where(brk, 0.0, _safe_div(an, dot(p, Ap)))
-        delta = delta + alpha * p
-        if (i + 1) % period == 0:
-            r = b_hat - A(delta)
-        else:
-            r = r - alpha * Ap
-        bn = dot(r, r)
-        p = r + _safe_div(bn, an) * p
-        an = bn
-        Q1 = 0.5 * dot(delta, r + b_hat)
-        zeta = (i + 1) * _safe_div(Q1 - Q0, Q1)
-        brk = brk | (zeta < q_tol)
-        Q0 = Q1
-    return delta
 

@@ -30,7 +30,8 @@ one operator seam, an object with
   pcg_backend      -> None, or a callable (sq, scs, b_hat, sp) -> d_hat
                       that solves S (J^T J [+ CtC]) S d_hat = b_hat,
                       S = diag(sq), in place of the PCG loop here
-                      (opt_tpu's SolverConfig.pcg_backend, :145-153)
+                      (opt_tpu's SolverConfig.pcg_backend, :145-153);
+                      the streamed engines' backends run solver/hat_pcg.py
 The plain engine's operator is compile/plan_fns.FuncsOperator; the CUDA
 engines' are ops/warp_cuda.WarpOperator and ops/stream_cuda.StreamOperator;
 a solve over a mesh runs the same loop on parallel/'s sharded operators.
@@ -75,7 +76,7 @@ GUARDED_INVERT_TYPES = ("CERES", "MODIFIED_CERES", "EPSILON_ADD")
 JACOBI_SCALING_TYPES = ("NONE", "ONCE_PER_SOLVE", "EVERY_ITERATION")
 
 
-def _safe_div(a, b):
+def safe_div(a, b):
     nz = b != 0
     return torch.where(nz, a / torch.where(nz, b, torch.ones_like(b)),
                        torch.zeros_like(a))
@@ -196,11 +197,11 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
             n, _ = op.apply(m)
             if i == 0:
                 beta = 0.0
-                alpha = _safe_div(gamma, dd)
+                alpha = safe_div(gamma, dd)
             else:
-                beta = _safe_div(gamma, gamma_prev)
-                alpha = _safe_div(gamma,
-                                  dd - beta * _safe_div(gamma, alpha_prev))
+                beta = safe_div(gamma, gamma_prev)
+                alpha = safe_div(gamma,
+                                 dd - beta * safe_div(gamma, alpha_prev))
             z = n + beta * z
             q = m + beta * q
             s = w + beta * s
@@ -226,7 +227,7 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
         brk = torch.zeros((), dtype=torch.bool, device=r.device)
         for i in range(int(sp["lIterations"])):
             ap, ad = op.apply(p, ctc)  # PCGStep1
-            alpha = _safe_div(an, ad)
+            alpha = safe_div(an, ad)
             if lm:
                 # the JAX while loop stops after the iteration that sets
                 # brk; here alpha = 0 from then on leaves delta as it was
@@ -241,11 +242,11 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
             else:
                 delta, r, z, bn, q = op.update(
                     alpha, p, ap, delta, r, pre, b if lm else None)
-            beta = _safe_div(bn, an)
+            beta = safe_div(bn, an)
             p = z + beta * p  # PCGStep3
             an = bn
             if lm:
-                zeta = (i + 1) * _safe_div(q - Q0, q)
+                zeta = (i + 1) * safe_div(q - Q0, q)
                 brk = brk | (zeta < q_tol)
                 Q0 = q
         return delta
@@ -269,9 +270,9 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
             ssq = torch.where(state["n_iter"] == 0, pre, ssq)
             ctc_raw = (1.0 / radius) * diag  # computeCtC (o.t:3019)
             if config.jacobi_scaling == "ONCE_PER_SOLVE":
-                inv_s_sq = _safe_div(torch.ones_like(ssq), ssq)
+                inv_s_sq = safe_div(torch.ones_like(ssq), ssq)
             elif config.jacobi_scaling == "EVERY_ITERATION":
-                inv_s_sq = _safe_div(torch.ones_like(pre), pre)
+                inv_s_sq = safe_div(torch.ones_like(pre), pre)
             else:
                 inv_s_sq = torch.ones_like(diag)
             ctc = torch.clamp(
@@ -279,7 +280,7 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
                 min=float(sp["min_lm_diagonal"]) * inv_s_sq / radius,
                 max=float(sp["max_lm_diagonal"]) * inv_s_sq / radius)
             # true preconditioner: 1/(CtC + radius*CtC_raw) = 1/(CtC + diag)
-            pre = op.mask(_safe_div(torch.ones_like(ctc), ctc + diag))
+            pre = op.mask(safe_div(torch.ones_like(ctc), ctc + diag))
         return pre, r, ctc, ssq  # pd.b = residuum (:1087)
 
     def pcg(op, pre, b, ctc, sp):
@@ -311,7 +312,7 @@ def make_solver(config: SolverConfig, dtype, use_preconditioner=True):
         prev = state["prev_cost"]
         model_cost_change = prev - op.model_cost(delta)
         cost_change = prev - new_cost
-        relative_decrease = _safe_div(cost_change, model_cost_change)
+        relative_decrease = safe_div(cost_change, model_cost_change)
         accept = ((cost_change >= 0)
                   & (relative_decrease > float(sp["min_relative_decrease"])))
         ftol_reached = cost_change <= prev * float(sp["function_tolerance"])

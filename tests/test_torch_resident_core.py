@@ -1,14 +1,14 @@
-"""The two-sync resident PCG core (csrc/resident_pcg.cuh) on the CPU: its
-phase order rendered in torch (stream_cuda.resident_pcg_phases_plain,
-K13's plain path) against the classic loop (resident_pcg_plain), bit for
-bit; the "cuda" engine's Gauss-Newton PCG on K13 (its plain path) against
+"""The two-sync resident PCG core (csrc/resident_pcg.cuh) on the CPU: K13's
+plain path (stream_cuda.resident_pcg_plain, solver/hat_pcg.py's classic
+loop in the kernel's phase order) against a textbook classic CG written
+here, bit for bit; the "cuda" engine's Gauss-Newton PCG on K13 (its plain path) against
 the JAX package's Plan.solve; which plans give WarpOperator K13 as its
 pcg_backend; which grids take K13's on-chip form on an H100
 (stream_cuda.onchip_tiles); and K12's plain loop against the JAX kernel
 poisson_cg_vmem in interpret mode at the card checks' ragged grid and
 iteration count.
 
-Tolerances: the phase order is the classic loop's arithmetic in another
+Tolerances: the phase order is the textbook loop's arithmetic in another
 order, so bit for bit; the solve rtol 1e-4 for the cost and
 tests/test_torch_lm.assert_solve_matches's for the unknowns, the bound
 for a re-associated inner loop (docs/GUIDE.md:204-207: the hat-space loop
@@ -24,6 +24,7 @@ import opt_tpu_torch
 from opt_tpu_torch import energies
 from opt_tpu_torch.ops import poisson_cuda, stream_cuda, warp_cuda
 from opt_tpu_torch.runtime.trace import LAUNCHES
+from opt_tpu_torch.solver.core import safe_div
 from tests.test_torch_evaluate import assert_close
 from tests.test_torch_lm import assert_solve_matches, jax_solve, make_plans
 from tests.test_torch_poisson import _jax_cg
@@ -36,16 +37,49 @@ W, H = 48, 32
 N_OUTER, N_LINEAR = 3, 40
 
 
-@pytest.mark.parametrize("n_iters", [1, 2, chip_smoke.RESIDENT_CHECK_ITERS])
-@pytest.mark.parametrize("energy", ["warp", "poisson"])
+def textbook_cg(hat, sq, b_hat, n_iters):
+    """Classic CG on A_hat d = b_hat from r = p = b_hat, p formed at the
+    end of each iteration, alpha = an / <p, A_hat p> where that is not 0
+    and beta = bn / an where an is not 0, no early exit."""
+    delta = torch.zeros_like(b_hat)
+    r = p = b_hat
+    an = torch.dot(r, r)
+    for _ in range(n_iters):
+        ap = hat.apply_plain(sq, p)
+        alpha = safe_div(an, torch.dot(p, ap))
+        delta = delta + alpha * p
+        r = r - alpha * ap
+        bn = torch.dot(r, r)
+        p = r + safe_div(bn, an) * p
+        an = bn
+    return delta
+
+
+def random_poisson_operands():
+    """A poisson hat on a 12 x 10 x 4 grid with a random fifth of sq 0."""
+    rng = np.random.RandomState(5)
+    Hs, Ws, C = 12, 10, 4
+    sq = torch.as_tensor((rng.rand(Hs * Ws * C) > 0.2).astype(np.float32))
+    b_hat = sq * torch.as_tensor(rng.randn(Hs * Ws * C).astype(np.float32))
+    return stream_cuda.PoissonHat(Hs, Ws, C), sq, b_hat
+
+
+@pytest.mark.parametrize("energy,n_iters", [
+    *((e, n) for e in ("warp", "poisson")
+      for n in (1, 2, chip_smoke.RESIDENT_CHECK_ITERS)),
+    ("random_poisson", 20)])
 def test_phase_order_matches_the_classic_loop_bit_for_bit(energy, n_iters):
-    """With excluded pixels (sq = 0: the warp grid's excluded pixel,
-    poisson's frame and one inner pixel); the wrapper's CPU path is the
-    phase order."""
-    hat, sq, b_hat = chip_smoke.resident_operands(torch, energy, *SMALL, CPU)
-    got = stream_cuda.resident_pcg_phases_plain(hat, sq, b_hat, n_iters)
-    assert torch.equal(got, stream_cuda.resident_pcg_plain(hat, sq, b_hat,
-                                                           n_iters))
+    """K13's plain path, which is the shared classic loop with p formed
+    where the apply reads it, and the wrapper's CPU path against the
+    textbook loop.  With excluded pixels (sq = 0: the warp grid's excluded
+    pixel, poisson's frame and one inner pixel, or a random fifth)."""
+    if energy == "random_poisson":
+        hat, sq, b_hat = random_poisson_operands()
+    else:
+        hat, sq, b_hat = chip_smoke.resident_operands(torch, energy, *SMALL,
+                                                      CPU)
+    got = stream_cuda.resident_pcg_plain(hat, sq, b_hat, n_iters)
+    assert torch.equal(got, textbook_cg(hat, sq, b_hat, n_iters))
     assert torch.equal(stream_cuda.resident_pcg(hat, sq, b_hat, n_iters),
                        got)
     assert got.any() and not got[sq == 0].any()

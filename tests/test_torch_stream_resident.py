@@ -4,9 +4,8 @@ StreamSolver run in interpret mode as tests/test_stream_solver.py runs it:
 image_warping and poisson with Exclude at 128x64, 3 outer x 15 PCG.  The
 tolerances are that test's own: cost rtol 1e-4 and x rtol 1e-3, atol 1e-4
 (the scaled-space PCG reorders float ops; GN absorbs it,
-opt_tpu/ops/stream_solver.py:25-28).  Also StreamSolver's gate, K13's
-plain loop against the port's shared classic_pcg, and chip_smoke's copy
-of the JAX tests' poisson inputs."""
+opt_tpu/ops/stream_solver.py:25-28).  Also StreamSolver's gate and chip_smoke's copy of the JAX tests' poisson
+inputs."""
 
 import numpy as np
 import pytest
@@ -77,29 +76,6 @@ def test_supports_refuses_what_the_kernel_does_not_hold():
     assert not stream_cuda.supports(plan(smooth))
     with pytest.raises(ValueError, match="Gauss-Newton"):
         stream_cuda.StreamSolver(plan(energies.image_warping, "LMGPU"))
-
-
-def test_resident_loop_matches_classic_pcg():
-    """K13's plain loop (p = r + beta p at the end of an iteration) and the
-    shared classic_pcg (p = r + beta p at the start of the next) are one
-    algorithm: both on the same poisson hat apply, 20 iterations."""
-    rng = np.random.RandomState(5)
-    Hs, Ws, C = 12, 10, 4
-    hat = stream_cuda.PoissonHat(Hs, Ws, C)
-    sq = torch.as_tensor((rng.rand(Hs * Ws * C) > 0.2).astype(np.float32))
-    b_hat = sq * torch.as_tensor(rng.randn(Hs * Ws * C).astype(np.float32))
-    got = stream_cuda.resident_pcg(hat, sq, b_hat, 20)
-
-    def hat_apply(r, p_prev=None, beta=None):
-        p = r if p_prev is None else r + beta * p_prev
-        ap = hat.apply_plain(sq, p)
-        return p, ap, torch.dot(p, ap)
-
-    want = stream_cuda.classic_pcg(
-        hat_apply, b_hat, {"lIterations": 20, "residual_reset_period": 10,
-                           "q_tolerance": 0.0}, lm=False)
-    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
-    assert not got[sq == 0].any()
 
 
 @pytest.mark.parametrize("W,H", [(128, 64), (37, 23)])
