@@ -282,13 +282,14 @@ RIGID_COST_MAX = 1e-6
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # Operations per pixel, voxel or element of each kernel and mode, counted
-# from its source with a sincosf taken as 40: K4 and K5 evaluate five
-# rotations a pixel, K7 seven rotations (21 sincosf) and twelve derivative
-# products a voxel, K2 a few per element.  K1, K3, K15, K6, K8 and K16
-# count the function's work, which their march and tile cores do.  K1:
-# one rotation a pixel (40) and four residuals (each G = R'(a) e, jp and
-# both halves, about 26), the fit, LM's ctc and the dot (16); K15 the
-# same, with sq . p in and sq . a out and no dot.  K3: one rotation a
+# from its source with a sincosf taken as 40: K5 evaluates five rotations
+# a pixel, K7 seven rotations (21 sincosf) and twelve derivative products
+# a voxel, K2 a few per element.  K1, K3, K4, K15, K6, K8 and K16 count
+# the function's work, which their march and tile cores do.  K1: one
+# rotation a pixel (40) and four residuals (each G = R'(a) e, jp and both
+# halves, about 26), the fit, LM's ctc and the dot (16); K15 the same,
+# with sq . p in and sq . a out and no dot; K4 K15's and the beta step,
+# LM's scs and the dot (18 more).  K3: one rotation a
 # pixel and four residuals (the value, 12; G, J^T F's and diag's halves
 # and r^2, about 24 more in full mode, 12 for the model cost's J delta),
 # the fit and the output.  K6 and K16: one rotation a voxel (3 sincosf and
@@ -299,7 +300,7 @@ F32_OPS_PER_S = 67e12
 # fit and the output.
 OPS = {"warp_jtj_apply": 160, "warp_slab_apply": 166,
        "warp_linearize": 200, "warp_linearize(cost)": 100,
-       "warp_linearize(model_cost)": 150, "warp_hat_apply": 300,
+       "warp_linearize(model_cost)": 150, "warp_hat_apply": 184,
        "warp_pipelined_sweep": 320, "pcg_update": 12, "vol_hat_apply": 860,
        "vol_pipelined_sweep": 1650, "vol_linearize": 820,
        "vol_linearize(cost)": 370, "vol_linearize(model_cost)": 640,

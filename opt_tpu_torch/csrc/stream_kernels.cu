@@ -17,42 +17,50 @@
 // sq = sqrt(pre), M_hat = I, so z == r and no preconditioner is read;
 // excluded unknowns have sq = 0, which zeroes their rows and columns
 // (stream_solver.py:17-28).  A_hat v = sq . J^T J (sq . v) + scs . v with
-// scs = sq^2 . ctc (LM) or absent (GN); J^T J is warp_energy.cuh's jtj_at.
+// scs = sq^2 . ctc (LM) or absent (GN).
 //
 // The TPU kernels stream row-tile windows with a halo through VMEM and
-// run their tiles in order; here every block of 32x8 pixels reads its
-// one-pixel halo straight from device memory (L1/L2 serve the overlap),
-// and the blocks run in parallel in no order.  So no sweep updates in
-// place across a halo: K4 forms p = r + beta p_prev at the centre and at
-// the neighbours it reads, and writes p to a buffer other than p_prev;
-// K5 reads w_in with its halo and writes w_out, the two buffers swapping
-// each iteration (the TPU kernel's A/B w slots, stream_solver.py:
-// 1232-1234).  K5's z, s, p, delta and r are read and written only at the
-// thread's own pixel, so they are updated in place.
+// run their tiles in order; here the blocks read their halo straight
+// from device memory (L1/L2 serve the overlap) and run in parallel in no
+// order.  So no sweep updates in place across a halo: K4 forms
+// p = r + beta p_prev at every pixel it reads and writes p to a buffer
+// other than p_prev; K5 reads w_in with its halo and writes w_out, the
+// two buffers swapping each iteration (the TPU kernel's A/B w slots,
+// stream_solver.py:1232-1234).  K5's z, s, p, delta and r are read and
+// written only at the thread's own pixel, so they are updated in place.
 //
 // The cross-block sums (<p, A_hat p> for K4; gamma = <r, r> and
-// dd = <w, r> for K5) are per-block partials from a fixed shared-memory
-// tree, summed by the caller: repeated solves match bit for bit.  alpha
-// and beta are read from device memory, so the host never waits on the
-// reductions that made them.
+// dd = <w, r> for K5) are per-block partials from a fixed tree, summed by
+// the caller: repeated solves match bit for bit.  alpha and beta are read
+// from device memory, so the host never waits on the reductions that made
+// them.
 //
 // Bound on the card: device memory.  At 2048^2 a flat vector is 50 MB, so
-// nothing stays in the 50 MB L2 between sweeps.  K4 reads x, sq, r, p_prev
-// and the constants (about 60 B per pixel, 72 B with scs) and writes p and
-// A_hat p (24 B); K5 reads x, sq, w_in and the constants and reads and
-// writes z, s, p, delta, r (about 100 B in, 72 B out per pixel; in LM
-// also scs and b_hat, 24 B in).  One thread per pixel with neighbour reads from L1/L2 keeps each vector to one
-// pass per sweep; the operand formed at a neighbour costs a few extra
-// flops, not extra passes.  K15 (below) runs on warp_tile.cuh's
-// row-marching core, as K1 does.
+// nothing stays in the 50 MB L2 between sweeps.  K4 reads the Angle,
+// UrShape, Constraints, Mask, sq, r and p_prev (60 B per pixel, 72 B with
+// scs) and writes p and A_hat p (24 B): 352.3 MB, 105.2 us at 3.35 TB/s
+// (GN with p_prev); K5 reads x, sq, w_in and the constants and reads and
+// writes z, s, p, delta, r (about 100 B in, 72 B out per pixel; in LM also
+// scs and b_hat, 24 B in).
+//
+// K4 and K15 run on warp_tile.cuh's row-marching core, as K1 does (a warp
+// of 32 lanes marches a strip of 30 own columns down a chunk of rows
+// sized to one wave, each pixel's data read once, its sincosf taken once,
+// each residual formed once; warp_tile.cuh says what bounded the gather
+// form, in which K4 took 210.3 us at 2048^2, 50% of its bound).  K4's Io
+// forms the operand sq . (r + beta p_prev) in registers at each pixel the
+// lane loads, as K13's L2 form does (resident_kernels.cu), and one kernel
+// template a mode (p_prev or not, scs or not) keeps the modes' loads and
+// stores out of one another's registers.  K5 keeps the gather form
+// (warp_energy.cuh jtj_at, one thread a pixel of a 32x8 block).
 
 #include "warp_energy.cuh"
 #include "warp_tile.cuh"
 
 namespace {
 
-// sq . (r + beta p_prev) at a pixel: K4's scaled operand (p_prev may be
-// null: then beta is taken as 0)
+// sq . (r + beta p_prev) at a pixel: the gather form's scaled operand
+// (K5 reads its w_in so, p_prev null: then beta is taken as 0)
 struct HatRead {
   const float* r;
   const float* pprev;
@@ -74,7 +82,8 @@ struct HatRead {
   }
 };
 
-// A_hat v at a pixel whose Mask is 0, for v(k) = (vk0, vk1, vkA)
+// A_hat v at a pixel whose Mask is 0, for v(k) = (vk0, vk1, vkA): K5's
+// gather-form apply
 __device__ __forceinline__ void hat_apply_at(
     const Grid& g, int i, int j, const float* __restrict__ x,
     const float* __restrict__ ur, const float* __restrict__ cons,
@@ -95,7 +104,75 @@ __device__ __forceinline__ void hat_apply_at(
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K4's operand and output on the march: p = r + beta p_prev (kBeta: one
+// __fmaf_rn, the same float at every lane that forms it) or p = r,
+// v = sq . p; at an own pixel A_hat p = sq . J^T J v (+ scs . p in LM,
+// scs read at own pixels only), 0 where masked, and (kBeta) p are
+// written, and p . A_hat p is the dot.  Its raw data: sq, r and (kBeta)
+// p_prev.  The launch writes none of the arrays it reads (p_out is a
+// buffer of its own), so all go through the read-only path.
+template <bool kBeta, bool kScs>
+struct HatApplyIo {
+  static constexpr int kRaw = kBeta ? 9 : 6;
+  const float* __restrict__ sq;
+  const float* __restrict__ r;
+  const float* __restrict__ pp;
+  const float* __restrict__ scs;
+  float* __restrict__ pn;
+  float* __restrict__ ap;
+  float beta;
+  int W, HW;
+  __device__ void fetch(int k, bool, bool pairs, float* raw) const {
+    ld_pair(sq, k, pairs, &raw[0], &raw[1]);
+    raw[2] = __ldg(sq + 2 * HW + k);
+    ld_pair(r, k, pairs, &raw[3], &raw[4]);
+    raw[5] = __ldg(r + 2 * HW + k);
+    if constexpr (kBeta) {
+      ld_pair(pp, k, pairs, &raw[6], &raw[7]);
+      raw[8] = __ldg(pp + 2 * HW + k);
+    }
+  }
+  __device__ void operand(const float* raw, Pix& px) const {
+    px.x0 = raw[0], px.x1 = raw[1], px.xA = raw[2];
+    if constexpr (kBeta) {
+      px.y0 = __fmaf_rn(beta, raw[6], raw[3]);
+      px.y1 = __fmaf_rn(beta, raw[7], raw[4]);
+      px.yA = __fmaf_rn(beta, raw[8], raw[5]);
+    } else {
+      px.y0 = raw[3], px.y1 = raw[4], px.yA = raw[5];
+    }
+    px.v0 = px.x0 * px.y0, px.v1 = px.x1 * px.y1, px.vA = px.xA * px.yA;
+  }
+  __device__ float store(int i, int j, const Pix& px, bool pairs) const {
+    const int k = i * W + j;
+    float a0 = 0.f, a1 = 0.f, aA = 0.f;
+    if (px.keep) {
+      a0 = px.x0 * px.a0, a1 = px.x1 * px.a1, aA = px.xA * px.aA;
+      if constexpr (kScs) {
+        float s0, s1;
+        ld_pair(scs, k, pairs, &s0, &s1);
+        a0 += s0 * px.y0;
+        a1 += s1 * px.y1;
+        aA += __ldg(scs + 2 * HW + k) * px.yA;
+      }
+    }
+    st_pair(ap, k, pairs, a0, a1);
+    ap[2 * HW + k] = aA;
+    if constexpr (kBeta) {
+      st_pair(pn, k, pairs, px.y0, px.y1);
+      pn[2 * HW + k] = px.yA;
+    }
+    return px.y0 * a0 + px.y1 * a1 + px.yA * aA;
+  }
+};
+
+// K4 on the row-marching core: blockIdx.y is a chunk of `rows` own rows
+// (hat_apply_rows), each warp a strip of kOwn own columns; one dot
+// partial a block.  kBeta: p_prev and beta are given (the classic loop's
+// iterations), else the operand is r (a plain A_hat r: the pipelined
+// loop's w_0, LM's resets); kScs: LM's scs diagonal
+template <bool kBeta, bool kScs>
+__global__ void __launch_bounds__(kStripThreads)
 warp_hat_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ ur,
                       const float* __restrict__ cons,
@@ -107,34 +184,23 @@ warp_hat_apply_kernel(const float* __restrict__ x,
                       const float* __restrict__ pprev,
                       const float* __restrict__ beta_ptr,
                       float* __restrict__ p_out, float* __restrict__ ap,
-                      float* __restrict__ partials, int H, int W) {
-  __shared__ float sh[kThreads];
-  const Grid g{H, W};
-  const int j = blockIdx.x * kBX + threadIdx.x;
-  const int i = blockIdx.y * kBY + threadIdx.y;
+                      float* __restrict__ partials, int H, int W, int rows,
+                      bool pairs) {
+  __shared__ float sh[kStripWarps];
+  const int w0 = (blockIdx.x * kStripWarps + threadIdx.y) * kOwn;
+  const int c0 = blockIdx.y * rows, c1 = min(c0 + rows, H);
   const int HW = H * W;
-  const float beta = pprev != nullptr ? *beta_ptr : 0.f;
-  const HatRead read{r, pprev, sq, beta, HW};
   float dot = 0.f;
-  if (g.inside(i, j)) {
-    const int k = i * W + j;
-    const int idx[3] = {2 * k, 2 * k + 1, 2 * HW + k};
-    float pk[3], a[3] = {0.f, 0.f, 0.f};
-    for (int c = 0; c < 3; ++c)
-      pk[c] = pprev != nullptr ? r[idx[c]] + beta * pprev[idx[c]]
-                               : r[idx[c]];
-    if (mask[k] == 0.f) {
-      hat_apply_at(g, i, j, x, ur, cons, mask, params, sq, scs, read, pk[0],
-                   pk[1], pk[2], a);
-      dot = pk[0] * a[0] + pk[1] * a[1] + pk[2] * a[2];
-    }
-    for (int c = 0; c < 3; ++c) {
-      if (p_out != nullptr) p_out[idx[c]] = pk[c];
-      ap[idx[c]] = a[c];
-    }
+  if (w0 < W) {
+    const HatApplyIo<kBeta, kScs> io{sq, r, pprev, scs, p_out, ap,
+                                     kBeta ? *beta_ptr : 0.f, W, HW};
+    dot = warp_tile_march(Grid{H, W}, c0, c1, w0 - 1 + (int)threadIdx.x,
+                          x + 2 * HW, ur, cons, mask, params[0], params[1],
+                          pairs, io);
   }
-  const float s = block_sum(dot, sh);
-  if (thread_rank() == 0) partials[block_rank()] = s;
+  const float s = strip_block_sum(dot, sh);
+  if (threadIdx.x == 0 && threadIdx.y == 0)
+    partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -265,11 +331,36 @@ warp_slab_apply_kernel(const float* __restrict__ x,
                   params[1], pairs, io);
 }
 
+// K4's chunk of own rows on the current device: one wave of the fewest
+// blocks any of its four modes holds at once, so that the modes share one
+// grid and one partial count (minus the CUDA error of an occupancy query)
+int hat_apply_rows(int H, int W) {
+  int capacity = INT_MAX;
+  for (const int c : {warp_tile_capacity(warp_hat_apply_kernel<true, false>),
+                      warp_tile_capacity(warp_hat_apply_kernel<true, true>),
+                      warp_tile_capacity(warp_hat_apply_kernel<false, false>),
+                      warp_tile_capacity(warp_hat_apply_kernel<false, true>)}) {
+    if (c < 0) return c;
+    capacity = std::min(capacity, c);
+  }
+  return warp_tile_rows(1, H, W, capacity);
+}
+
 }  // namespace
 
-// p_out, pprev, beta and scs may be null: with pprev null the operand is r
-// itself (a plain A_hat r, for the LM reset and the pipelined w_0), and
-// with p_out null it is not written back
+// K4's dot partials: one a block of its march (minus the CUDA error where
+// the occupancy query fails)
+extern "C" int opt_warp_hat_apply_blocks(int H, int W) {
+  const int rows = hat_apply_rows(H, W);
+  if (rows < 0) return rows;
+  const dim3 gr = warp_tile_grid(1, H, W, rows);
+  return (int)(gr.x * gr.y);
+}
+
+// pprev, beta and p_out come together or not at all: without them the
+// operand is r itself (a plain A_hat r, for the LM reset and the
+// pipelined w_0); scs is null for GN.  The partials are
+// opt_warp_hat_apply_blocks(H, W)
 extern "C" int opt_warp_hat_apply(const float* x, const float* ur,
                                   const float* cons, const float* mask,
                                   const float* params, const float* sq,
@@ -277,11 +368,24 @@ extern "C" int opt_warp_hat_apply(const float* x, const float* ur,
                                   const float* pprev, const float* beta,
                                   float* p_out, float* ap, float* partials,
                                   int H, int W, void* stream) {
-  warp_hat_apply_kernel<<<warp_grid(H, W), dim3(kBX, kBY), 0,
-                          (cudaStream_t)stream>>>(
-      x, ur, cons, mask, params, sq, scs, r, pprev, beta, p_out, ap,
-      partials, H, W);
-  return (int)cudaGetLastError();
+  const bool prev = pprev != nullptr;
+  if (prev != (beta != nullptr) || prev != (p_out != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int rows = hat_apply_rows(H, W);
+  if (rows < 0) return -rows;
+  const bool pairs = tile_pairs(0, 1, sq, scs, r, pprev, p_out, ap, ur, cons);
+  auto launch = [&](auto kernel) {
+    kernel<<<warp_tile_grid(1, H, W, rows), dim3(kStrip, kStripWarps), 0,
+             (cudaStream_t)stream>>>(x, ur, cons, mask, params, sq, scs, r,
+                                     pprev, beta, p_out, ap, partials, H, W,
+                                     rows, pairs);
+    return (int)cudaGetLastError();
+  };
+  if (prev)
+    return scs != nullptr ? launch(warp_hat_apply_kernel<true, true>)
+                          : launch(warp_hat_apply_kernel<true, false>);
+  return scs != nullptr ? launch(warp_hat_apply_kernel<false, true>)
+                        : launch(warp_hat_apply_kernel<false, false>);
 }
 
 // scs is null for GN; b_hat and q_partials are null together outside LM

@@ -1,5 +1,5 @@
 // The image_warping energy's J^T J apply at one pixel, the gather form
-// shared by K4 and K5 (stream_kernels.cu); K1, K13 and K15 run on
+// that K5 runs (stream_kernels.cu); K1, K4, K13 and K15 run on
 // warp_tile.cuh's row-marching core instead.
 //
 // The energy, for pixel k (row i, column j) and stencil offset s in

@@ -1,13 +1,13 @@
 // The row-marching 2-D apply core of K1 warp_jtj_apply (warp_kernels.cu),
-// K15 warp_slab_apply (stream_kernels.cu) and K13 resident_pcg's apply
-// (resident_kernels.cu): J^T J v for image_warping
+// K4 warp_hat_apply and K15 warp_slab_apply (stream_kernels.cu) and K13
+// resident_pcg's apply (resident_kernels.cu): J^T J v for image_warping
 // (warp_energy.cuh states the energy), each pixel's data read once, its
 // sincosf taken once, each residual formed once.  K3 warp_linearize's
 // march (warp_kernels.cu) walks the grid the same way with these loaders,
 // chunk rule and block sum.
 //
-// What bounded the gather form on this card.  The gather form, which K4
-// and K5 keep (warp_energy.cuh jtj_at, one thread a pixel), takes
+// What bounded the gather form on this card.  The gather form, which K5
+// keeps (warp_energy.cuh jtj_at, one thread a pixel), takes
 // five sincosf a pixel (its own and one for each neighbour whose residual
 // reads it), forms each of the eight residuals that touch a pixel, so
 // every residual twice, and reads UrShape, Mask and the operand again at

@@ -51,6 +51,7 @@ SIGNATURES = {
     "opt_warp_jtj_apply": [_P] * 9 + [_I, _I, _P],
     "opt_warp_linearize_blocks": [_I] * 4,
     "opt_warp_linearize": [_P] * 9 + [_I, _I, _I, _P],
+    "opt_warp_hat_apply_blocks": [_I, _I],
     "opt_warp_hat_apply": [_P] * 13 + [_I, _I, _P],
     "opt_warp_pipelined_sweep": [_P] * 20 + [_I, _I, _P],
     "opt_pcg_update_blocks": [_I],

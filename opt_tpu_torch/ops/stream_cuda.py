@@ -182,8 +182,9 @@ def warp_hat_apply(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
     lib = build.library()
     p = torch.empty_like(r) if p_prev is not None else r
     ap = torch.empty_like(r)
-    parts = torch.empty(lib.opt_warp_blocks(H, W), dtype=r.dtype,
-                        device=r.device)
+    parts = torch.empty(build.coop_blocks(lib.opt_warp_hat_apply_blocks(H, W),
+                                          "warp_hat_apply"),
+                        dtype=r.dtype, device=r.device)
     rc = lib.opt_warp_hat_apply(
         build.ptr(x), build.ptr(ur), build.ptr(cons), build.ptr(mask),
         build.ptr(params), build.ptr(sq), build.ptr(scs), build.ptr(r),

@@ -187,20 +187,80 @@ def test_pcg_update_hat_mode_matches_plain(dev, W, H, lm):
     _close(got, k2.pcg_update_plain(*args))
 
 
-@pytest.mark.parametrize("lm", [False, True])
-@pytest.mark.parametrize("W,H", HAT_SIZES)
-def test_hat_apply_kernel_matches_plain(dev, W, H, lm):
+# K4 on the row-marching core: the slice-2 sizes, then widths of 0, 1 and
+# 29 mod kOwn = 30 at fewer rows than kMarchMin (4), with the grid's border
+# excluded ("border") or every vector at an odd float offset in its
+# storage ("odd": the single-float loads and stores)
+HAT_APPLY_CASES = [(W, H, "aligned") for W, H in HAT_SIZES] + [
+    (60, 3, "border"), (61, 2, "odd"), (59, 1, "border"), (90, 3, "odd"),
+    (31, 2, "border")]
+
+
+def _hat_operands(W, H, dev, layout):
+    """kernel_operands for K4, in the case's layout: (x, ur, cons, mask,
+    params, t)."""
     x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
                                                               dev, seed=5)
+    if layout == "border":
+        for edge in (mask[0], mask[-1], mask[:, 0], mask[:, -1]):
+            edge.fill_(1.0)
+        keep = warp_cuda._flat_keep(mask.view(H, W) == 0)
+        for k in ("p", "sq", "scs"):
+            t[k] = torch.where(keep, t[k], torch.zeros((), device=dev))
+    if layout == "odd":
+        for k in ("sq", "scs", "r", "p"):
+            t[k] = torch.cat([t[k].new_zeros(1), t[k]])[1:]
+            assert t[k].data_ptr() % 8 == 4
+    return x, ur, cons, mask, params, t
+
+
+def _k4_partials(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
+                 beta=None):
+    """K4 through its C entry, into as many partials as
+    opt_warp_hat_apply_blocks gives and one past them, NaN before the
+    launch: (p or None, A_hat p, partials), the one past them left NaN."""
+    from opt_tpu_torch.ops import build
+
+    lib = build.library()
+    H, W = mask.shape[:2]
+    p = None if p_prev is None else torch.empty_like(r)
+    ap = torch.empty_like(r)
+    n = lib.opt_warp_hat_apply_blocks(H, W)
+    parts = torch.full((n + 1,), float("nan"), device=r.device)
+    ptr = build.ptr
+    build.check(lib.opt_warp_hat_apply(
+        ptr(x), ptr(ur), ptr(cons), ptr(mask), ptr(params), ptr(sq),
+        ptr(scs), ptr(r), ptr(p_prev), ptr(beta), ptr(p), ptr(ap),
+        ptr(parts), H, W, build.stream()), "warp_hat_apply")
+    assert torch.isnan(parts[n])
+    return p, ap, parts[:n]
+
+
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("W,H,layout", HAT_APPLY_CASES)
+def test_hat_apply_kernel_matches_plain(dev, W, H, layout, lm):
+    """K4's four modes (p_prev or not, GN or LM's scs) against
+    warp_hat_apply_plain; the blocks write exactly the partials
+    opt_warp_hat_apply_blocks counts, and two calls match bit for bit."""
+    x, ur, cons, mask, params, t = _hat_operands(W, H, dev, layout)
     beta = torch.tensor(0.61, dtype=torch.float32, device=dev)
     scs = t["scs"] if lm else None
     args = (x, ur, cons, mask, params, t["sq"], scs, t["r"])
-    n = LAUNCHES["K4.warp_hat_apply"]
-    _close(stream_cuda.warp_hat_apply(*args, t["p"], beta),
-           stream_cuda.warp_hat_apply_plain(*args, t["p"], beta))
-    _close(stream_cuda.warp_hat_apply(*args),
-           stream_cuda.warp_hat_apply_plain(*args))
-    assert LAUNCHES["K4.warp_hat_apply"] == n + 2
+    for extra in ((t["p"], beta), ()):
+        n = LAUNCHES["K4.warp_hat_apply"]
+        got = stream_cuda.warp_hat_apply(*args, *extra)
+        assert LAUNCHES["K4.warp_hat_apply"] == n + 1
+        _close(got, stream_cuda.warp_hat_apply_plain(*args, *extra))
+        a, b = _k4_partials(*args, *extra), _k4_partials(*args, *extra)
+        assert not torch.isnan(a[2]).any()
+        assert all((u is None and v is None) or torch.equal(u, v)
+                   for u, v in zip(a, b))
+        assert torch.equal(a[1], got[1])
+        assert float(torch.sum(a[2])) == float(got[2])
+        if extra:
+            assert torch.equal(a[0], got[0])
+        else:
+            assert got[0] is t["r"]
 
 
 @pytest.mark.parametrize("lm", [False, True])
@@ -1286,8 +1346,9 @@ def test_warp_march_launch_failure_raises_through_solve(dev, monkeypatch):
 
 @pytest.mark.parametrize("W,H", [(37, 23), (2048, 2048)])
 def test_gather_form_kernels_repeat_bit_for_bit(dev, W, H):
-    """K4 (GN and LM) and K5 (GN and LM) keep warp_energy.cuh's gather
-    form, and K13 its loop's fixed-tree partials: two calls on the same
+    """K4 (GN and LM, on the row-marching core since it left the gather
+    form) and K5 (GN and LM, warp_energy.cuh's gather form) sum their
+    partials in fixed trees, and K13 its loop's: two calls on the same
     operands match bit for bit."""
     x, ur, cons, mask, params, t = chip_smoke.kernel_operands(torch, W, H,
                                                               dev, seed=12)

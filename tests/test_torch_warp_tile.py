@@ -1,5 +1,6 @@
 """The algebra of the row-marching 2-D apply core (csrc/warp_tile.cuh) that
-K1 warp_jtj_apply and K15 warp_slab_apply run on, on the CPU.
+K1 warp_jtj_apply, K4 warp_hat_apply and K15 warp_slab_apply run on, on
+the CPU.
 
 The kernels cannot run here, so a torch rendering of their decomposition
 stands in for them: `march` walks a grid strip by strip (a warp of 32
@@ -15,12 +16,14 @@ into the pixel's sums; then the W halves each pixel is handed, from the
 lane before and then the lane after.  A chunk's face rows are read for
 the pair that crosses them.  It is held (rtol 1e-5) against:
 
-* warp_jtj_apply_plain and warp_slab_apply_plain, the versions the
-  kernels are held to on the card: at ragged W and H, with and without
-  LM's ctc, with excluded pixels beside the strips' edges and negative
-  Constraints, in the kernel's chunks and in chunks of 4 and 1 rows; on 3
-  slabs of 1 and of 17 rows with a halo of 2, the first slab's halo before
-  the global edge and the last's past it;
+* warp_jtj_apply_plain, warp_hat_apply_plain and warp_slab_apply_plain,
+  the versions the kernels are held to on the card: at ragged W and H
+  (K4 also at widths of 0, 1 and 29 mod 30 on fewer rows than a chunk's
+  least, in its four modes), with and without LM's ctc or scs, with
+  excluded pixels beside the strips' edges and negative Constraints, in
+  the kernel's chunks and in chunks of 4 and 1 rows; on 3 slabs of 1 and
+  of 17 rows with a halo of 2, the first slab's halo before the global
+  edge and the last's past it;
 * the JAX package: J^T J p through its linearize of energies.image_warping
   at 37x23, and ShardedStreamEngine.build_apply_kernel in interpret mode
   on 4 slabs (as tests/test_torch_shard_stream.py runs it, at its gates'
@@ -36,7 +39,7 @@ import torch
 
 import chip_smoke
 from opt_tpu.parallel import stream_shard as jss
-from opt_tpu_torch.ops import slab_cuda, warp_cuda
+from opt_tpu_torch.ops import slab_cuda, stream_cuda, warp_cuda
 from opt_tpu_torch.ops.warp_cuda import _split
 from tests.test_torch_evaluate import assert_close, plans
 from tests.test_torch_plan_fns import pack
@@ -170,6 +173,21 @@ def jtj_march(x, p, ur, cons, mask, params, ctc=None, rows=None):
     return ap, torch.dot(p, ap)
 
 
+def hat_march(x, ur, cons, mask, params, sq, scs, r, p_prev=None,
+              beta=None, rows=None):
+    """K4's function by the march: p = r + beta p_prev (r alone without
+    p_prev), A_hat p = sq J^T J (sq p) (+ scs p), zero at excluded pixels,
+    and <p, A_hat p>."""
+    H, W = mask.shape[:2]
+    p = r if p_prev is None else r + beta * p_prev
+    O, A = march(x, ur, cons, mask, params, sq * p, rows=rows)
+    ap = sq * torch.cat((O.reshape(-1), A.reshape(-1)))
+    if scs is not None:
+        keep = warp_cuda._flat_keep(mask.view(H, W) == 0)
+        ap = ap + torch.where(keep, scs * p, torch.zeros(()))
+    return p, ap, torch.dot(p, ap)
+
+
 def slab_march(x, ur, cons, mask, params, sq, p, g, rows=None):
     """K15's function by the march: A_hat p at every slab's own rows, in
     the local layout."""
@@ -229,6 +247,30 @@ def test_march_matches_plain_jtj_apply(W, H, lm, rows):
     want = warp_cuda.warp_jtj_apply_plain(*args)
     assert_close(got[0].numpy(), want[0].numpy(), RTOL, "Ap")
     assert float(got[1]) == pytest.approx(float(want[1]), rel=RTOL)
+
+
+# K4's grids: a ragged one, widths of 0, 1 and 29 mod OWN on fewer rows
+# than MARCH_MIN, one pixel
+HAT_SIZES = [(37, 23), (60, 3), (61, 2), (59, 1), (1, 1)]
+
+
+@pytest.mark.parametrize("prev", [False, True])
+@pytest.mark.parametrize("lm", [False, True])
+@pytest.mark.parametrize("W,H", HAT_SIZES)
+def test_march_matches_plain_hat_apply(W, H, lm, prev):
+    """K4's four modes on the march against warp_hat_apply_plain, the
+    grid's border excluded besides _operands' pixels."""
+    x, ur, cons, mask, params, t = _operands(W, H)
+    for edge in (mask[0], mask[-1], mask[:, 0], mask[:, -1]):
+        edge[: max(1, len(edge) // 2)] = 1.0
+    beta = torch.tensor(0.61)
+    args = (x, ur, cons, mask, params, t["sq"], t["scs"] if lm else None,
+            t["r"]) + ((t["p"], beta) if prev else ())
+    got = hat_march(*args)
+    want = stream_cuda.warp_hat_apply_plain(*args)
+    assert_close(got[0].numpy(), want[0].numpy(), RTOL, "p")
+    assert_close(got[1].numpy(), want[1].numpy(), RTOL, "A_hat p")
+    assert float(got[2]) == pytest.approx(float(want[2]), rel=RTOL)
 
 
 @pytest.mark.parametrize("rows", [None, 4])
