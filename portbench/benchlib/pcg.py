@@ -1,57 +1,29 @@
 """The inner PCG loop's kernels in a traced run: which device rows they are,
-their device time a traced solve, and the work the loop needs a solve.
+their device time a traced solve, and the work the loop, or its apply
+alone, needs a solve.
 
-PCG_KERNELS names, by energy, the kernels that run the inner PCG on the
-engine its cells take; a device row is one of them where its name holds
-one of the names.  A later cell whose energy runs other kernels adds its
-own entry.
-
-The readers learn their cell from the run's own command line (run.py's
---workload), the one thing that names it in the process that reads them.
+Each energy names the kernels that run its inner PCG on the engine its
+cells take (energies/<energy>.py PCG_KERNELS), and those of the loop's
+apply alone (APPLY_KERNELS) where a metric reads them; a device row is one
+of them where its name holds one of the names.  The readers take the cell
+and the card's peaks from the run's record (runner.RunRecord), so they
+read the same inside and outside run.py.
 """
 
 from __future__ import annotations
 
-import argparse
-import sys
-
 from .profile import union_s
-from .work import bound, cell_calls
-
-PCG_KERNELS = {
-    # the stream engine (ops/stream_cuda.py): K5 the pipelined sweep (GN),
-    # K4 the hat apply (w_0 for GN; every classic iteration and LM's
-    # residual resets), K2 the hat-mode update (classic)
-    "image_warping": ("warp_pipelined_sweep", "warp_hat_apply",
-                      "pcg_update"),
-}
-
-
-def workload(argv=None):
-    """The --workload of the command line (sys.argv), or None."""
-    ap = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
-    ap.add_argument("--workload")
-    args, _ = ap.parse_known_args(sys.argv[1:] if argv is None else argv)
-    return args.workload
-
-
-def run_cell_of(argv=None):
-    """The Cell that the command line's --workload names in
-    BENCHMARK.json, or None where it names none."""
-    from .spec import ROOT, load_cell, read_json
-
-    name = workload(argv)
-    if name is None:
-        return None
-    try:
-        return load_cell(read_json(ROOT / "BENCHMARK.json"), name, True)
-    except (KeyError, OSError):
-        return None
+from .work import applies, apply_call, bound, cell_calls, counts
 
 
 def kernel_names(cell):
     """The energy's PCG kernel names, or () where it lists none."""
-    return PCG_KERNELS.get(cell.config["energy"], ())
+    return tuple(getattr(cell.energy(), "PCG_KERNELS", ()))
+
+
+def apply_kernel_names(cell):
+    """The names of the kernels that run the energy's PCG apply, or ()."""
+    return tuple(getattr(cell.energy(), "APPLY_KERNELS", ()))
 
 
 def is_pcg(name, names):
@@ -83,10 +55,32 @@ def pcg_bound_s(cell, peaks):
     return bound(calls, peaks)["seconds"]
 
 
+def apply_bound_s(cell, peaks):
+    """The least time the PCG applies of one solve can take: work.py's
+    bound of one apply times the applies a solve makes."""
+    energy, c = cell.energy(), cell.config
+    n_points, n_edges = counts(cell)
+    one = apply_call(energy.POINT, n_points, getattr(energy, "EDGE", None),
+                     n_edges)
+    return bound([one], peaks)["seconds"] * applies(
+        cell.lm, int(c["nIterations"]), int(c["lIterations"]))
+
+
+def _pct(trace, names, bound_s):
+    busy = pcg_busy_s(trace, names) if names else 0.0
+    if busy <= 0:
+        return None
+    return 100.0 * bound_s * trace.solves / busy
+
+
 def roofline_pct(trace, names, cell, peaks):
     """100 x the PCG loops' bound a solve over the named kernels' device
     time a traced solve, or None where the trace holds none of them."""
-    busy = pcg_busy_s(trace, names)
-    if busy <= 0:
-        return None
-    return 100.0 * pcg_bound_s(cell, peaks) * trace.solves / busy
+    return _pct(trace, names, pcg_bound_s(cell, peaks))
+
+
+def apply_roofline_pct(trace, cell, peaks):
+    """100 x the PCG applies' bound a solve over the device time of the
+    energy's apply kernels a traced solve, or None where it names none or
+    the trace holds none of them."""
+    return _pct(trace, apply_kernel_names(cell), apply_bound_s(cell, peaks))

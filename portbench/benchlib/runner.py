@@ -23,7 +23,7 @@ from dataclasses import dataclass
 
 from . import check, window
 from .spec import reader
-from .work import bound, cell_calls, peaks_for
+from .work import bound, cell_calls, counts, peaks_for
 
 
 @dataclass
@@ -34,6 +34,8 @@ class RunRecord:
     elapsed_s: float  # window start to the end of its last solve
     trace: object  # profile.Trace, or None
     work: dict  # work.bound() of one solve, or None
+    cell: object = None  # the spec.Cell that ran
+    peaks: dict = None  # the card's peaks (work.peaks_for), or None
 
 
 def log(msg):
@@ -57,10 +59,17 @@ def finite_or_none(v):
     return v if v is not None and math.isfinite(v) else None
 
 
-def work_bound(cell, device_name):
-    """work.bound() of one solve on the card named device_name."""
-    peaks = peaks_for(device_name)
+def work_bound(cell, peaks):
+    """work.bound() of one solve at the card's peaks."""
     return bound(cell_calls(cell, peaks["l2_bytes"]), peaks)
+
+
+def counted_over(cell):
+    """What a cell's work bound is counted over, in words."""
+    n_points, n_edges = counts(cell)
+    if not n_edges:
+        return f"{n_points} points"
+    return f"{n_points} vertices and {n_edges} edges"
 
 
 def keep_last(loop):
@@ -129,7 +138,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, engine="auto",
         tr = profile_trace(torch, loop.solve, int(traffic["trace_solves"]))
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     kind = torch.cuda.get_device_name() if on_card else "cpu"
-    work = work_bound(cell, kind) if on_card else None
+    peaks = peaks_for(kind) if on_card else None
+    work = work_bound(cell, peaks) if on_card else None
 
     # the check, once the program's state is freed
     kept = keep_last(loop)
@@ -144,7 +154,7 @@ def run_cell(cell, seed, seconds, trace, device, t_start, engine="auto",
                and check.judge(numbers, cell.limits))
     log(f"check: entries {entries}, reference {clock() - t0:.1f} s")
 
-    record = RunRecord(setup_s, solves, elapsed, tr, work)
+    record = RunRecord(setup_s, solves, elapsed, tr, work, cell, peaks)
     metrics = {}
     for m in cell.metrics:
         value = reader(m["name"])(record)
@@ -162,7 +172,8 @@ def run_cell(cell, seed, seconds, trace, device, t_start, engine="auto",
                                "idle_gaps": tr.idle_gaps()}
     if work is not None:
         log(f"work bound of a solve: {work['seconds'] * 1e3:.4f} ms "
-            f"({work['bytes']} bytes, {work['operations']} operations; "
+            f"({work['bytes']} bytes, {work['operations']} operations, "
+            f"counted over {counted_over(cell)}; "
             f"{100 * work['bytes_share']:.1f}% of it bound by bytes)")
     result["check"] = {k: {"value": finite_or_none(numbers.get(k)),
                            "limit": cell.limits[k]} for k in cell.limits}

@@ -29,7 +29,8 @@ class Cell:
         return self.traffic["solver"] == "LMGPU"
 
     def energy(self):
-        """The energy's generator and work count (energies/<energy>.py)."""
+        """The energy's generator, work tables, test size and PCG kernels
+        (energies/<energy>.py)."""
         return importlib.import_module(
             f"portbench.energies.{self.config['energy']}")
 

@@ -21,6 +21,13 @@ and the diagonal instead), what the apply needs of the unknowns and the
 constants, and LM's ctc and b, and writes delta, r and p (the last writes
 delta alone).  LM's residual reset every RESET_PERIOD iterations adds one
 apply's operations.
+
+A grid energy counts its points from the product of the dims, by its POINT
+table.  A graph energy's dims are [vertices, edges]: its POINT table
+counts the vertices, which hold the unknowns and the vectors, and its EDGE
+table the edges, whose words are the indices that each call reads once
+(what a kernel materializes per edge, such as the graph engine's partials,
+is the kernel's choice and not counted).
 """
 
 from __future__ import annotations
@@ -42,50 +49,88 @@ def peaks_for(device_name):
     raise KeyError(f"no peaks for {device_name!r} in {PEAKS}")
 
 
+def counts(cell):
+    """(points, edges) of a cell: a grid's points and no edge, or a graph
+    energy's vertices and edges (dims [vertices, edges])."""
+    dims = cell.config["dims"]
+    if getattr(cell.energy(), "EDGE", None) is None:
+        return math.prod(dims), 0
+    return int(dims[0]), int(dims[1])
+
+
 def cell_calls(cell, l2_bytes):
-    """solve_calls() of a cell: its energy's POINT table at its sizes."""
-    c = cell.config
-    return solve_calls(cell.energy().POINT, math.prod(c["dims"]), cell.lm,
+    """solve_calls() of a cell: its energy's POINT (and EDGE) tables at its
+    sizes."""
+    c, energy = cell.config, cell.energy()
+    n_points, n_edges = counts(cell)
+    return solve_calls(energy.POINT, n_points, cell.lm,
                        int(c["nIterations"]), int(c["lIterations"]),
-                       l2_bytes)
+                       l2_bytes, getattr(energy, "EDGE", None), n_edges)
 
 
-def solve_calls(point, n_points, lm, n_outer, n_linear, l2_bytes):
+def solve_calls(point, n_points, lm, n_outer, n_linear, l2_bytes,
+                edge=None, n_edges=0):
     """[(label, bytes, operations)] of one solve.  point: the energy's
     POINT table (float32 words a point: unknowns, consts, apply_reads;
     operations a point: linearize, cost, model_cost, apply, and vector, the
     operations a PCG iteration's vector updates and dots take an unknown
-    word)."""
+    word); edge: a graph energy's EDGE table of the same keys, whose consts
+    and apply_reads are the words an edge adds to every call (its
+    indices), at n_edges edges."""
     u, c, a = point["unknowns"], point["consts"], point["apply_reads"]
     ops = point["ops"]
-    n = n_points
-    calls = [("cost", n * (u + c) * WORD, n * ops["cost"])]
+    n, e = n_points, n_edges
+    eops = edge["ops"] if edge else dict.fromkeys(ops, 0)
+    idx = e * edge["consts"] * WORD if edge else 0  # each call's indices
+    e_apply = e * edge["apply_reads"] * WORD if edge else 0
+    calls = [("cost", n * (u + c) * WORD + idx,
+              n * ops["cost"] + e * eops["cost"])]
     it_ops = ops["apply"] + ops["vector"] * u
     resets = n_linear // RESET_PERIOD if lm else 0
     vectors = 6 + (2 if lm else 0)
-    fits = n * (vectors * u + u + c) * WORD <= l2_bytes
+    fits = n * (vectors * u + u + c) * WORD + idx <= l2_bytes
     for _ in range(n_outer):
-        calls.append(("linearize", n * (u + c + 2 * u) * WORD,
-                      n * ops["linearize"]))
+        calls.append(("linearize", n * (u + c + 2 * u) * WORD + idx,
+                      n * ops["linearize"] + e * eops["linearize"]))
         if fits:
-            calls.append(("pcg_loop", n * (u + c + 2 * u + u) * WORD,
-                          n * (n_linear * it_ops + resets * ops["apply"])))
+            calls.append(("pcg_loop", n * (u + c + 2 * u + u) * WORD + idx,
+                          n * (n_linear * it_ops + resets * ops["apply"])
+                          + e * (n_linear + resets) * eops["apply"]))
         else:
             for i in range(n_linear):
                 reads = (2 * u if i == 0 else 4 * u) + a
                 if lm and i:
                     reads += 2 * u  # ctc and b
                 writes = u if i == n_linear - 1 else 3 * u
-                extra = (ops["apply"] if lm and (i + 1) % RESET_PERIOD == 0
-                         else 0)
-                calls.append(("pcg_iteration", n * (reads + writes) * WORD,
-                              n * (it_ops + extra)))
-        calls.append(("update_cost", n * (u + u + c + u) * WORD,
-                      n * (ops["cost"] + u)))
+                reset = lm and (i + 1) % RESET_PERIOD == 0
+                extra = ops["apply"] if reset else 0
+                calls.append(("pcg_iteration",
+                              n * (reads + writes) * WORD + e_apply,
+                              n * (it_ops + extra)
+                              + e * (1 + reset) * eops["apply"]))
+        calls.append(("update_cost", n * (u + u + c + u) * WORD + idx,
+                      n * (ops["cost"] + u) + e * eops["cost"]))
         if lm:
-            calls.append(("model_cost", n * (u + u + c) * WORD,
-                          n * ops["model_cost"]))
+            calls.append(("model_cost", n * (u + u + c) * WORD + idx,
+                          n * ops["model_cost"] + e * eops["model_cost"]))
     return calls
+
+
+def apply_call(point, n_points, edge=None, n_edges=0):
+    """(label, bytes, operations) of one hat-space apply, A_hat p = S J^T J
+    S p: it reads p, the scaling S and what J^T J p reads besides the
+    vectors, and writes A_hat p."""
+    u, a = point["unknowns"], point["apply_reads"]
+    ea, e_apply = (edge["apply_reads"], edge["ops"]["apply"]) if edge else (
+        0, 0)
+    return ("apply", (n_points * (3 * u + a) + n_edges * ea) * WORD,
+            n_points * point["ops"]["apply"] + n_edges * e_apply)
+
+
+def applies(lm, n_outer, n_linear):
+    """The applies of a solve's PCG loops: one an iteration, and LM's
+    residual resets."""
+    return n_outer * (n_linear + (n_linear // RESET_PERIOD if lm else 0))
 
 
 def bound(calls, peaks):

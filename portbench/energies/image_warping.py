@@ -1,6 +1,7 @@
-"""image_warping (Opt's examples/image_warping): the seeded inputs, and
-the work a pixel needs (POINT, which benchlib/work.py counts a solve's
-calls from).
+"""image_warping (Opt's examples/image_warping): the seeded inputs, the
+work a pixel needs (POINT, which benchlib/work.py counts a solve's calls
+from), the size the tests run it at and the kernels that run its inner
+PCG on the stream engine.
 
 inputs() is bench.warp_inputs, the synthetic field that the port's and the
 JAX package's main path have always run: a random UrShape, a band of
@@ -12,6 +13,15 @@ w_reg 2.
 from __future__ import annotations
 
 import numpy as np
+
+# the size the tests run it at, and the engine that runs the cells' kernels
+# there in their plain versions on CPU tensors
+SMALL = {"dims": [24, 20], "outer": 2, "pcg": 10, "engine": "cuda"}
+
+# the stream engine (ops/stream_cuda.py): K5 the pipelined sweep (GN), K4
+# the hat apply (w_0 for GN; every classic iteration and LM's residual
+# resets), K2 the hat-mode update (classic)
+PCG_KERNELS = ("warp_pipelined_sweep", "warp_hat_apply", "pcg_update")
 
 # float32 words a pixel: the unknowns (Offset 2, Angle 1); the constants
 # (UrShape 2, Constraints 2, Mask 1); what J^T J p reads besides the vectors

@@ -1,6 +1,7 @@
 """volumetric_mesh_deformation (Opt's examples/volumetric_mesh_deformation):
-the seeded inputs, and the work a node needs (POINT, which
-benchlib/work.py counts a solve's calls from).
+the seeded inputs, the work a node needs (POINT, which benchlib/work.py
+counts a solve's calls from), the size the tests run it at and the
+kernels that run its inner PCG on the stream3d engine.
 
 inputs() is the set-up of bench.aux_volumetric on an n^3 grid of nodes, the
 Opt example's own: a regular grid, its H = 0 plane pinned where it is and
@@ -12,6 +13,14 @@ noise; w_fit 1, w_reg 0.05.
 from __future__ import annotations
 
 import numpy as np
+
+# the size the tests run it at, and the engine that runs it there
+SMALL = {"dims": [10, 10, 10], "outer": 3, "pcg": 20, "engine": "stream3d"}
+
+# the stream3d engine (ops/stream3d_cuda.py): K6 the hat apply (every
+# classic iteration), K7 the pipelined sweep (on request), K2 the hat-mode
+# update
+PCG_KERNELS = ("vol_hat_apply", "vol_pipelined_sweep", "pcg_update")
 
 # float32 words a node: the unknowns (Offset 3, Angle 3); the constants
 # (UrShape 3, Constraints 3); what J^T J p reads besides the vectors (the

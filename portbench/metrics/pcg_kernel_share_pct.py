@@ -1,13 +1,12 @@
 """pcg_kernel_share_pct: 100 x the device time of the kernels that run the
-inner PCG loop (benchlib/pcg.py's PCG_KERNELS for the cell's energy) over
-all kernel time, a traced solve: how much of the device's work the loop's
+inner PCG loop (the cell's energy's PCG_KERNELS, benchlib/pcg.py) over all
+kernel time, a traced solve: how much of the device's work the loop's
 kernels do."""
 
 from portbench.benchlib import pcg
 
 
 def read(run):
-    cell = pcg.run_cell_of() if run.trace is not None else None
-    if cell is None:
+    if run.trace is None or run.cell is None:
         return None
-    return pcg.share_pct(run.trace, pcg.kernel_names(cell))
+    return pcg.share_pct(run.trace, pcg.kernel_names(run.cell))

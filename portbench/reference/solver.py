@@ -1,8 +1,8 @@
 """Gauss-Newton and Levenberg-Marquardt with a Jacobi-preconditioned PCG
-loop, in plain torch on a GridEnergy (grid.py): a frozen copy of the
-numerics of opt_tpu_torch/solver/core.py (Opt's solverGPUGaussNewton.t),
-with its defaults (guarded invert CERES, Jacobi scaling once a solve,
-classic PCG) and nothing else:
+loop, in plain torch on a GridEnergy (grid.py) or a GraphEnergy
+(graph.py): a frozen copy of the numerics of opt_tpu_torch/solver/core.py
+(Opt's solverGPUGaussNewton.t), with its defaults (guarded invert CERES,
+Jacobi scaling once a solve, classic PCG) and nothing else:
 
   r = -J^T F, pre = 1 / (1 + sqrt(diag))^2 (GN) or 1 / (CtC + diag) (LM),
   the classic PCG loop with a fixed trip count; LM recomputes r = b - A
@@ -10,7 +10,7 @@ classic PCG) and nothing else:
   test by freezing delta; the trust region accepts or rejects each step
   as Ceres' StepAccepted does; a `done` flag freezes the state.
 
-Vectors are (*grid, U) tensors; scalars stay 0-d tensors.
+Vectors are (*grid, U) or (N, U) tensors; scalars stay 0-d tensors.
 """
 
 from __future__ import annotations

@@ -23,7 +23,7 @@ STENCIL = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
            (0, 0, -1))
 
 
-def _rotate(a, v):
+def rotate3d(a, v):
     ca, cb, cg = torch.cos(a[..., 0]), torch.cos(a[..., 1]), torch.cos(
         a[..., 2])
     sa, sb, sg = torch.sin(a[..., 0]), torch.sin(a[..., 1]), torch.sin(
@@ -49,7 +49,7 @@ def build(inputs, dtype, device):
 
     def reg(uc, un, cc, cn):
         return w_reg * ((uc[..., :3] - un[..., :3])
-                        - _rotate(uc[..., 3:], cc - cn))
+                        - rotate3d(uc[..., 3:], cc - cn))
 
     families = [Family(reg, inside(grid, (k, j, i), device), ur, (k, j, i))
                 for i, j, k in STENCIL]

@@ -11,7 +11,7 @@ from portbench_testlib import bench, small_cell
 from portbench.benchlib import check, window
 from portbench.benchlib.runner import run_cell
 
-WORKLOADS = [w["name"] for w in bench()["workloads"]]
+WORKLOADS = [w["name"] for w in bench(held=True)["workloads"]]
 SEED = 2 ** 31 + 2024
 
 

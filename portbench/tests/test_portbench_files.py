@@ -13,7 +13,7 @@ import pytest
 
 from portbench_testlib import ROOT, bench, small_cell, with_solver
 from portbench.benchlib import window
-from portbench.benchlib.spec import load_cell, reader
+from portbench.benchlib.spec import HERE, load_cell, reader
 from portbench.benchlib.work import bound, cell_calls, peaks_for
 from portbench.energies import image_warping, volumetric_mesh_deformation
 
@@ -27,8 +27,15 @@ H100 = peaks_for("NVIDIA H100 80GB HBM3")
 def test_cell_loads_by_name(name, trace):
     cell = load_cell(bench(), name, trace)
     assert cell.chips == 1
-    assert cell.config["energy"] in ("image_warping",
-                                     "volumetric_mesh_deformation")
+    # the energy brings its generator, reference, work tables, test size
+    # and PCG kernels as files of its own
+    energy = cell.config["energy"]
+    assert (HERE / "energies" / f"{energy}.py").is_file()
+    assert (HERE / "reference" / f"{energy}.py").is_file()
+    e = cell.energy()
+    assert set(e.POINT) == {"unknowns", "consts", "apply_reads", "ops"}
+    assert set(e.SMALL) == {"dims", "outer", "pcg", "engine"}
+    assert e.PCG_KERNELS and all(isinstance(n, str) for n in e.PCG_KERNELS)
     assert cell.traffic["solver"] in ("gaussNewtonGPU", "LMGPU")
     assert set(cell.limits) == {"cost_gap", "x_gap"}
     assert cell.metrics and all(
@@ -50,10 +57,22 @@ def test_every_cell_reports_setup_and_a_layer_metric():
         assert load_cell(b, name, True).metrics
 
 
+def _flat(inputs, prefix=""):
+    """name -> array, a graph's index arrays as "G.v0" and so on."""
+    out = {}
+    for k, v in inputs.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
 def _digest(inputs):
     h = hashlib.sha256()
-    for k in sorted(inputs):
-        a = np.asarray(inputs[k])
+    flat = _flat(inputs)
+    for k in sorted(flat):
+        a = flat[k]
         h.update(k.encode())
         h.update(str(a.dtype).encode())
         h.update(a.tobytes())
@@ -79,7 +98,8 @@ def test_generator_seed0_is_the_repositorys_input(energy):
     assert _digest(energy.inputs(dims, 0)) == want
 
 
-@pytest.mark.parametrize("name", WORKLOADS)
+@pytest.mark.parametrize("name", [w["name"]
+                                  for w in bench(held=True)["workloads"]])
 def test_pool_is_seeded_and_repeats(name):
     cell, _ = small_cell(name)
     big = 2 ** 31 + 12345
@@ -92,8 +112,8 @@ def test_pool_is_seeded_and_repeats(name):
     assert _digest(c[0]) != _digest(a[0])
     # the same sizes from every seed
     for x, y in zip(a, c):
-        assert {k: np.shape(v) for k, v in x.items()} == {
-            k: np.shape(v) for k, v in y.items()}
+        assert {k: v.shape for k, v in _flat(x).items()} == {
+            k: v.shape for k, v in _flat(y).items()}
 
 
 def test_entry_seeds_of_seed0_are_the_generators_first():
@@ -192,7 +212,10 @@ for w in b["workloads"]:
         cell.energy(); cell.reference()
 for m in b["end_to_end"] + b["per_layer"]:
     reader(m["name"])
-import portbench.reference.solver, portbench.reference.grid
+import importlib, pkgutil, portbench.energies, portbench.reference
+for pkg in (portbench.energies, portbench.reference):
+    for m in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(f"{pkg.__name__}.{m.name}")
 print(json.dumps(sorted(sys.modules)))
 """
 

@@ -181,70 +181,63 @@ def _pcg_trace(solves=2):
     return Trace(solves, 0.002, device, [])
 
 
-def _record(trace, work=True):
-    return RunRecord(1.0, [], 1.0, trace, {"seconds": 1.0} if work else None)
-
-
-@pytest.fixture
-def on_cell(monkeypatch):
-    """The readers' command line naming a cell."""
-    def use(name):
-        monkeypatch.setattr("sys.argv", [
-            "portbench/run.py", "--workload", name, "--seed", "7",
-            "--seconds", "51", "--trace", "1"])
-    return use
+def _record(trace, work=True, cell=None):
+    """A run's record of warp2048_gn (or `cell`) on an H100."""
+    cell = cell or load_cell(bench(), CELL, True)
+    return RunRecord(1.0, [], 1.0, trace, {"seconds": 1.0} if work else None,
+                     cell, H100 if work else None)
 
 
 @pytest.mark.parametrize("solves", [1, 2])
-def test_pcg_share_reads_the_named_kernels(on_cell, solves):
-    on_cell("warp2048_gn")
+def test_pcg_share_reads_the_named_kernels(solves):
     tr = _pcg_trace(solves)
-    names = pcg.PCG_KERNELS["image_warping"]
+    names = pcg.kernel_names(load_cell(bench(), CELL, True))
+    assert names == ("warp_pipelined_sweep", "warp_hat_apply", "pcg_update")
     # 600 us of the PCG's kernels in 800 us of kernels (the copy is none)
     assert pcg.share_pct(tr, names) == pytest.approx(75.0)
     assert reader("pcg_kernel_share_pct")(_record(tr)) == pytest.approx(75.0)
 
 
-def test_pcg_roofline_reads_the_loops_bound(on_cell, monkeypatch):
-    on_cell("warp2048_gn")
+def test_pcg_roofline_reads_the_loops_bound():
     tr = _pcg_trace(2)
-    cell = pcg.run_cell_of()
+    cell = load_cell(bench(), CELL, True)
     assert cell.name == "warp2048_gn" and not cell.lm
     want = 100.0 * pcg.pcg_bound_s(cell, H100) / 600e-6
-    names = pcg.PCG_KERNELS["image_warping"]
+    names = pcg.kernel_names(cell)
     assert pcg.roofline_pct(tr, names, cell, H100) == pytest.approx(want)
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda *a: "NVIDIA H100 80GB HBM3")
     assert reader("pcg_kernel_roofline_pct")(_record(tr)) == pytest.approx(
         want)
 
 
 @pytest.mark.parametrize("metric", ["pcg_kernel_share_pct",
                                     "pcg_kernel_roofline_pct"])
-def test_pcg_readers_are_none_without_rows_work_or_cell(on_cell, metric,
-                                                        monkeypatch):
-    monkeypatch.setattr(torch.cuda, "get_device_name",
-                        lambda *a: "NVIDIA H100 80GB HBM3")
+def test_pcg_readers_are_none_without_rows_work_or_cell(metric):
     read = reader(metric)
     tr = _pcg_trace()
-    # no trace, or a command line that names no cell
-    on_cell("warp2048_gn")
+    # no trace, or a record that names no cell
     assert read(_record(None)) is None
-    on_cell("no_such_cell")
-    assert read(_record(tr)) is None
+    rec = _record(tr)
+    rec.cell = None
+    assert read(rec) is None
     # no row of the PCG's kernels (a program that launched none of them)
-    on_cell("warp2048_gn")
-    tr.device = [ev for ev in tr.device
-                 if not pcg.is_pcg(ev[0], pcg.PCG_KERNELS["image_warping"])]
+    names = pcg.kernel_names(load_cell(bench(), CELL, True))
+    tr.device = [ev for ev in tr.device if not pcg.is_pcg(ev[0], names)]
     assert read(_record(tr)) is None
     # a run with no work bound (not on a card): the roofline reads none
     if metric == "pcg_kernel_roofline_pct":
         assert read(_record(_pcg_trace(), work=False)) is None
 
 
-def test_workload_is_read_from_the_command_line():
-    assert pcg.workload(["--workload", "warp2048_gn", "--seed", "3"]) == (
-        "warp2048_gn")
-    assert pcg.workload(["--seed", "3"]) is None
-    assert pcg.run_cell_of(["--seed", "3"]) is None
-    assert pcg.run_cell_of(["--workload", "warp512_gn"]).name == "warp512_gn"
+@pytest.mark.parametrize("metric", ["pcg_kernel_share_pct",
+                                    "pcg_kernel_roofline_pct"])
+def test_pcg_readers_read_the_records_cell_whatever_the_command_line(
+        metric, monkeypatch):
+    """The readers give the same inside and outside run.py: the command
+    line is not read, the record's cell is."""
+    read = reader(metric)
+    want = read(_record(_pcg_trace()))
+    assert want is not None
+    for argv in (["pytest"], ["portbench/run.py", "--workload", "warp512_gn",
+                              "--seed", "7", "--seconds", "51"]):
+        monkeypatch.setattr("sys.argv", argv)
+        assert read(_record(_pcg_trace())) == want

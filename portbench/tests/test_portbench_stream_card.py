@@ -112,7 +112,7 @@ def test_traced_stream_solve_keeps_spans_off_the_device_track(card):
     assert not [n for n, _, _, _ in tr.device if n.startswith("opt.")]
     run = _record(tr)
     got = {m: reader(m)(run) for m in SPAN_METRICS}
-    share = pcg.share_pct(tr, pcg.PCG_KERNELS["image_warping"])
+    share = pcg.share_pct(tr, pcg.kernel_names(cell))
     print("warp2048_gn", got, "pcg share", share)
     assert all(v is not None and math.isfinite(v) for v in got.values())
     solve_idle = spans.idle_ms_per_solve(tr, lambda n: n == "opt.solve")
